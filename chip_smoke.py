@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (kzg_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases; any failure raises and the script exits non-zero with no result:
+  1. build every CUDA kernel from kzg_tpu_torch/csrc (one nvcc per source,
+     in parallel) and print the card's name and power limit;
+  2. hold each kernel against its plain PyTorch version on the card, bit
+     for bit, at the main path's shapes;
+  3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
+     and a few outputs against direct evaluation with Python ints;
+  4. the main path at the PeerDAS shape (EIP-7594: a 4096-element blob
+     extended to 8192, 64-element cells, 128 cell proofs): device CRS of
+     4096 points, FK20MultiSettings(n2=8192, l=64), blob -> coefficients
+     (inverse FFT) -> da_using_fk20_multi. Every launch counter must be
+     > 0; the 128 proofs must equal the same call on the plain path on the
+     card and an exact host oracle ([q(s)]G for the known secret);
+  5. times on the card after warm-up: whole calls with CUDA events,
+     each kernel's device time and the FK20 call's device activity
+     from a torch.profiler trace.
+The line before the last is one JSON object with every kernel's numbers;
+the last line is {"ok": true, "device": {...}}. Needs no network and
+imports nothing of JAX or kzg_tpu.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20240
+SECRET = 1927409816240961209460912649124
+# published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s, and
+# the CUDA-core float32 rate, used as the rate of 32-bit integer
+# multiply-adds (2 operations each, like an FMA)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+OUT_DIR = "chiprun_out"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_events(fn) -> list:
+    """(name, start_us, end_us) of every device activity (kernels, copies)
+    of one call of fn, from torch.profiler's CUPTI trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def kernel_ms(fn, match: str, reps: int):
+    """(mean device ms of one launch of the kernel whose name holds
+    `match`, launches the trace caught). fn launches it once a call. The
+    trace may miss some launches of a long kernel, so the mean is over
+    the ones it caught; (None, 0) when it caught none."""
+    fn()
+    spans = device_events(lambda: [fn() for _ in range(reps)])
+    mine = [e - s for name, s, e in spans if match in name]
+    return (sum(mine) / 1e3 / len(mine), len(mine)) if mine else (None, 0)
+
+
+def busy_us(spans) -> float:
+    """Length of the union of the device activity intervals."""
+    total, end = 0.0, float("-inf")
+    for _, s, e in sorted(spans, key=lambda t: t[1]):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def bound_ms(nbytes: float, word_products: float):
+    """Least time for the work: bytes at HBM rate vs 32x32->64 word
+    products (one multiply-add, 2 operations each) at the peak rate."""
+    tb = nbytes / PEAK_BYTES * 1e3
+    to = 2 * word_products / PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def random_fr_ints(rng, n: int, modulus: int) -> list:
+    w = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.int64).tolist()
+    return [(a + (b << 63) + (c << 126) + (d << 189) + (e << 252)) % modulus
+            for a, b, c, d, e in w]
+
+
+def eval_poly(coeffs, x: int, m: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % m
+    return acc
+
+
+def bitrev(i: int, bits: int) -> int:
+    return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def oracle_proofs(coeffs, n2: int, l: int, secret: int, r: int, host_ec):
+    """Coset proofs of DAUsingFK20Multi by definition: proof j is
+    [q(s)]G with q = f div (X^l - x0^l), x0 the coset's first point in
+    reverse-bit order."""
+    n = len(coeffs)
+    k2 = n2 // l
+    bits = (k2 - 1).bit_length()
+    w = pow(7, (r - 1) // n2, r)
+    s = secret % r
+    g = host_ec.g1_generator()
+    out = []
+    for j in range(k2):
+        c = pow(pow(w, bitrev(j, bits), r), l, r)
+        q = [0] * n
+        for i in range(n - 1 - l, -1, -1):
+            q[i] = (coeffs[i + l] + c * (q[i + l] if i + l < n else 0)) % r
+        out.append(host_ec.g1_mul(g, eval_poly(q, s, r)))
+    return out
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the modules' kernel calls to the plain versions (this
+    script's reference run; the package itself never does this)."""
+    from kzg_tpu_torch.curve import fft_g1, g1
+    from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.field import fp, fr
+    from kzg_tpu_torch.field import kernels as fk
+    from kzg_tpu_torch.ntt import fft_fr
+
+    def stage(spec, x, roots, log_half, stride):
+        return x.copy_(fk.fr_butterfly_stage_plain(spec, x, roots,
+                                                   log_half, stride))
+
+    swaps = [(fr, "mont_mul", fk.mont_mul_plain),
+             (fp, "mont_mul", fk.mont_mul_plain),
+             (fft_fr, "fr_butterfly_stage", stage),
+             (fft_fr, "fr_scale", fk.fr_scale_plain),
+             (g1, "g1_scalar_mul", gk.g1_scalar_mul_plain),
+             (fft_g1, "g1_glv_butterfly", gk.g1_glv_butterfly_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check(ok: bool, what: str) -> None:
+    """Fail the run (not an assert: the checks must hold under -O too)."""
+    if not ok:
+        raise RuntimeError(what)
+
+
+def same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, tuple):
+        return all(same(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def max_abs_err(a, b) -> int:
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from kzg_tpu_torch import build
+    from kzg_tpu_torch.curve import g1
+    from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.curve.fft_g1 import fft_g1
+    from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+    from kzg_tpu_torch.field import fp, fr
+    from kzg_tpu_torch.field import kernels as fk
+    from kzg_tpu_torch.fk20.multi import FK20MultiSettings
+    from kzg_tpu_torch.kzg.setup import insecure_kzg_settings_device
+    from kzg_tpu_torch.ntt.bitrev import brp_permute
+    from kzg_tpu_torch.ntt.domain import FFTSettings
+    from kzg_tpu_torch.ntt.fft_fr import fft
+    from kzg_tpu_torch.utils import host_ec
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    dev = torch.device("cuda")
+    r = fr.SPEC.modulus
+    rng = np.random.default_rng(SEED)
+
+    # ---- 1. build and identify ----
+    t = time.time()
+    logs = build.build_all()
+    log(f"build: {time.time() - t:.1f} s ({len(logs)} libraries compiled)")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                log(f"  {name}: {line.strip()}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    kind = torch.cuda.get_device_name(0)
+
+    # ---- 2. kernels against their plain versions ----
+    def fp_pts(n):
+        """n points in the r-torsion: multiples of G through K3."""
+        gen = g1.generator((n,), dev)
+        sc = fr.from_int(random_fr_ints(rng, n, r), dev)
+        return g1.mul(gen, sc)
+
+    checks = {}
+    for spec in (fr.SPEC, fp.SPEC):
+        n = 1 << 16
+        m = spec.modulus
+        near = [m - 1, m - 2, m - 3, m - (1 << 32), 0, 1, 2, (1 << 255) % m]
+        av = random_fr_ints(rng, n - len(near), m) + near
+        bv = random_fr_ints(rng, n - len(near), m) + near[::-1]
+        a, b = spec.encode(av, dev), spec.encode(bv, dev)
+        got, want = fk.mont_mul(spec, a, b), fk.mont_mul_plain(spec, a, b)
+        check(same(got, want), f"mont_mul {spec.name} differs")
+        checks[f"mont_mul_{spec.name}"] = max_abs_err(got, want)
+        log(f"K1 mont_mul {spec.name}: {n} lanes bit-exact")
+
+    fs12 = FFTSettings(12, dev)
+    x12 = fr.from_int(random_fr_ints(rng, 1 << 12, r), dev)
+    c12 = fr.from_int(pow(1 << 12, -1, r), dev)
+    got = fk.fr_scale(fr.SPEC, x12, c12)
+    want = fk.fr_scale_plain(fr.SPEC, x12, c12)
+    check(same(got, want), "fr_scale differs")
+    checks["fr_scale"] = max_abs_err(got, want)
+    log("fr_scale: 4096 lanes (2^12 inverse-FFT exit) bit-exact")
+
+    for inverse in (False, True):
+        got = fft(fs12, x12, inverse)
+        with plain_path():
+            want = fft(fs12, x12, inverse)
+        check(same(got, want), f"FFT 2^12 inverse={inverse} differs")
+        checks[f"fr_butterfly_stage_{int(inverse)}"] = max_abs_err(got, want)
+    log("K2 fr_butterfly_stage: whole Fr FFT 2^12 fwd+inv bit-exact")
+
+    n3 = 8192
+    base = fp_pts(n3)
+    inf = g1.infinity((2,), dev)
+    for c in range(3):  # lanes 0-1: (1, 1, 0) infinity; 2: all-zero
+        base[c][:2] = inf[c]
+        base[c][2] = 0
+    sv = random_fr_ints(rng, n3, r)
+    sv[3:6] = [0, 1, r - 1]
+    digits = fr.scalar_windows_signed(fr.from_int(sv, dev))
+    got = gk.g1_scalar_mul(base, digits)
+    want = gk.g1_scalar_mul_plain(base, digits)
+    check(same(got, want), "g1_scalar_mul differs")
+    checks["g1_scalar_mul"] = max_abs_err(got, want)
+    aff = g1.to_affine_ints(JacobianPoint(*(c[:8] for c in got)))
+    ins = g1.to_affine_ints(JacobianPoint(*(c[:8] for c in base)))
+    check(aff == [host_ec.g1_mul(p, s) for p, s in zip(ins, sv[:8])],
+          "g1_scalar_mul disagrees with the host oracle")
+    log(f"K3 g1_scalar_mul: {n3} lanes bit-exact (incl. infinity, 0, 1, r-1)")
+
+    fs13 = FFTSettings(13, dev)
+    pts128 = fp_pts(128)
+    for inverse in (False, True):
+        got = fft_g1(fs13, pts128, inverse)
+        with plain_path():
+            want = fft_g1(fs13, pts128, inverse)
+        check(same(got, want), f"G1 FFT 128 inverse={inverse} differs")
+        checks[f"g1_glv_butterfly_{int(inverse)}"] = max_abs_err(got, want)
+    log("K4 g1_glv_butterfly: whole 128-point G1 FFT fwd+inv bit-exact")
+
+    # ---- 3. Fr FFT at 2^20 ----
+    fs20 = FFTSettings(20, dev)
+    vals = random_fr_ints(rng, 1 << 20, r)
+    x20 = fr.from_int(vals, dev)
+    y20 = fft(fs20, x20)
+    back = fft(fs20, y20, inverse=True)
+    check(same(back, x20), "FFT 2^20 roundtrip failed")
+    w20 = fs20.root_of_unity_int
+    idx = [0, 1, 777777]
+    ys = fr.to_int(y20[idx])
+    for i, y in zip(idx, ys):
+        check(int(y) == eval_poly(vals, pow(w20, i, r), r), f"FFT out {i}")
+    log(f"Fr FFT 2^20: roundtrip exact; outputs {idx} match direct evaluation")
+
+    # ---- 4. main path at the PeerDAS shape ----
+    n, n2, l = 4096, 8192, 64
+    t = time.time()
+    ks = insecure_kzg_settings_device(SECRET, n, fs13)
+    torch.cuda.synchronize()
+    crs_s = time.time() - t
+    crs_aff = g1.to_affine_ints(JacobianPoint(*(c[[0, 1, 4095]]
+                                                for c in ks.secret_g1)))
+    gen = host_ec.g1_generator()
+    check(crs_aff == [host_ec.g1_mul(gen, pow(SECRET, i, r))
+                      for i in (0, 1, 4095)], "device CRS is wrong")
+    t = time.time()
+    fkm = FK20MultiSettings(ks, n2, l)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t
+    log(f"CRS (4096 points, K3): {crs_s:.2f} s; FK20 settings "
+        f"(64 x 128-point G1 FFTs, batched): {setup_s:.2f} s")
+
+    blob_ints = random_fr_ints(rng, n, r)
+    blob = fr.from_int(blob_ints, dev)
+
+    def blob_to_proofs(b):
+        coeffs = fft(fs13, brp_permute(b, axis=-2), inverse=True)
+        return coeffs, fkm.da_using_fk20_multi(coeffs)
+
+    fk.reset_launches()
+    gk.reset_launches()
+    coeffs, proofs = blob_to_proofs(blob)
+    torch.cuda.synchronize()
+    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"main path launches: {json.dumps(launches)}")
+    for name, cnt in launches.items():
+        check(cnt > 0, f"{name} was not launched on the main path")
+    check(proofs.x.shape == (n2 // l, fp.N_WORDS),
+          f"proofs have shape {tuple(proofs.x.shape)}")
+
+    coeff_ints = [int(v) for v in fr.to_int(coeffs)]
+    w13 = fs13.root_of_unity_int
+    for i in (0, 5, 4095):
+        check(eval_poly(coeff_ints, pow(w13, 2 * i, r), r)
+              == blob_ints[bitrev(i, 12)], "blob -> coefficients is wrong")
+    with plain_path():
+        plain = fkm.da_using_fk20_multi(coeffs)
+    got_aff = g1.to_affine_ints(proofs)
+    check(got_aff == g1.to_affine_ints(plain),
+          "proofs differ from the plain path")
+    check(got_aff == oracle_proofs(coeff_ints, n2, l, SECRET, r, host_ec),
+          "proofs differ from the host oracle")
+    log("main path: 128 proofs equal the plain path and the host oracle")
+
+    # ---- 5. times ----
+    def timed(fn, reps):
+        return cuda_ms(fn, reps)
+
+    def clocks() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+
+    log(f"clocks before timing: {clocks()}")
+
+    fk20_ms = timed(lambda: fkm.da_using_fk20_multi(coeffs), 3)
+    path_ms = timed(lambda: blob_to_proofs(blob), 3)
+    fft20_ms = timed(lambda: fft(fs20, x20), 3)
+    log(f"[{card}] FK20 da_using_fk20_multi: {fk20_ms:.3f} ms = "
+        f"{128 / fk20_ms * 1e3:.1f} proofs/s; blob->proofs {path_ms:.3f} ms")
+    log(f"[{card}] Fr FFT 2^20: {fft20_ms:.3f} ms")
+
+    # where the FK20 call's time goes: device activity in one traced call
+    spans = device_events(lambda: fkm.da_using_fk20_multi(coeffs))
+    busy_ms = busy_us(spans) / 1e3
+    by_name = {}
+    for name, s, e in spans:
+        cnt, tot = by_name.get(name, (0, 0.0))
+        by_name[name] = (cnt + 1, tot + (e - s) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    profile = {"device_ops": len(spans), "busy_ms": busy_ms,
+               "idle_share": max(0.0, 1 - busy_ms / fk20_ms),
+               "top": [{"name": k[:120], "count": c, "ms": t}
+                       for k, (c, t) in top[:12]]}
+    log(f"[{card}] FK20 trace: {len(spans)} device ops, busy "
+        f"{busy_ms:.3f} ms of {fk20_ms:.3f} ms "
+        f"(idle share {profile['idle_share']:.3f})")
+    for row in profile["top"][:8]:
+        log(f"    {row['ms']:10.3f} ms {row['count']:6d}x {row['name'][:90]}")
+
+    kernels = []
+
+    def record(name, match, source, replaces, fn, plain_fn, nbytes,
+               products, err, reps=5, plain_reps=1):
+        # events, trace, events again: the two event timings bracket the
+        # traced one, so a clock that ramps during the window shows
+        call_ms = timed(fn, reps)
+        dev_ms, caught = kernel_ms(fn, match, reps)
+        call2_ms = timed(fn, reps)
+        ms = call2_ms if dev_ms is None else dev_ms
+        pms = timed(plain_fn, plain_reps)
+        b, by = bound_ms(nbytes, products)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
+            "bound_by": by, "library_ms": None})
+        timing[name] = {"device_ms": dev_ms, "traced_launches": caught,
+                        "reps": reps, "call_ms": [call_ms, call2_ms]}
+        log(f"[{card}] {name}: {ms:.4f} ms on the device ({caught} of "
+            f"{reps} launches traced), {call_ms:.4f} then {call2_ms:.4f} ms "
+            f"a call (plain {pms:.3f} ms, bound {b:.5f} ms by {by})")
+
+    timing = {}
+
+    FR, FP = fr.SPEC, fp.SPEC
+    # K1 at the widest Fp tier of the tree sum: 5 x 32 x 128 lanes
+    a = FP.encode(random_fr_ints(rng, 5 * 32 * 128, FP.modulus), dev)
+    b = FP.encode(random_fr_ints(rng, 5 * 32 * 128, FP.modulus), dev)
+    nl = a.shape[0]
+    record("mont_mul", "mont_mul_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:324",
+           lambda: fk.mont_mul(FP, a, b), lambda: fk.mont_mul_plain(FP, a, b),
+           3 * 48 * nl, nl * (2 * 12 * 12 + 12),
+           max(checks["mont_mul_Fr"], checks["mont_mul_Fp"]))
+    # fr_scale at the blob's inverse FFT exit: 4096 lanes
+    c13 = fr.from_int(pow(n, -1, r), dev)
+    x13 = blob
+    record("fr_scale", "mont_mul_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:658",
+           lambda: fk.fr_scale(FR, x13, c13),
+           lambda: fk.fr_scale_plain(FR, x13, c13),
+           2 * 32 * n, n * (2 * 8 * 8 + 8), checks["fr_scale"])
+    # K2: last stage of the batched (64, 128) Toeplitz-coefficient FFT
+    xs = fr.from_int(random_fr_ints(rng, 64 * 128, r), dev).reshape(64, 128, 8)
+    half = 64
+    nbf = 64 * 64
+    record("fr_butterfly_stage", "butterfly_stage_kernel",
+           "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:514",
+           lambda: fk.fr_butterfly_stage(FR, xs, fs13.expanded_roots_of_unity,
+                                         6, fs13.max_width // 128),
+           lambda: fk.fr_butterfly_stage_plain(
+               FR, xs, fs13.expanded_roots_of_unity, 6,
+               fs13.max_width // 128),
+           nbf * (4 * 32) + half * 32, nbf * (2 * 8 * 8 + 8),
+           max(checks["fr_butterfly_stage_0"], checks["fr_butterfly_stage_1"]))
+    # K3 at the Toeplitz pointwise product: 64 x 128 lanes
+    pts = fkm.x_ext_fft_files
+    pts = JacobianPoint(*(c.reshape(-1, 12).contiguous() for c in pts))
+    dig = fr.scalar_windows_signed(
+        fr.from_int(random_fr_ints(rng, 8192, r), dev))
+    nnz = int((dig != 0).sum())
+    muls3 = 8192 * (3 + 7 * 12 + 64 * 4 * 8 + 3) + 12 * nnz
+    record("g1_scalar_mul", "scalar_mul_kernel",
+           "kzg_tpu_torch/csrc/g1_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:473",
+           lambda: gk.g1_scalar_mul(pts, dig),
+           lambda: gk.g1_scalar_mul_plain(pts, dig),
+           8192 * (6 * 48 + 64 * 4), muls3 * 300, checks["g1_scalar_mul"],
+           reps=3)
+    # K4 at one stage of the 128-point proof FFT: 64 lanes, last stage
+    from kzg_tpu_torch.curve.fft_g1 import _stage_digits
+    d1n, d2n = _stage_digits(13, 128, False, None)[0][-1]
+    d1 = torch.from_numpy(d1n).to(dev)
+    d2 = torch.from_numpy(d2n).to(dev)
+    A = JacobianPoint(*(c[:64].contiguous() for c in pts))
+    B = JacobianPoint(*(c[64:128].contiguous() for c in pts))
+    nz1, nz2 = int(np.count_nonzero(d1n)), int(np.count_nonzero(d2n))
+    muls4 = 64 * (3 + 7 * 12 + 33 * 4 * 8 + 3 + 2 * 12 + 2 * 3) \
+        + 12 * nz1 + 13 * nz2
+    record("g1_glv_butterfly", "glv_butterfly_kernel",
+           "kzg_tpu_torch/csrc/g1_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:526",
+           lambda: gk.g1_glv_butterfly(A, B, d1, d2),
+           lambda: gk.g1_glv_butterfly_plain(A, B, d1, d2),
+           64 * (12 * 48 + 2 * 33 * 4), muls4 * 300,
+           max(checks["g1_glv_butterfly_0"], checks["g1_glv_butterfly_1"]))
+
+    log(f"clocks after timing: {clocks()}")
+    result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
+              "proofs_per_s": 128 / fk20_ms * 1e3,
+              "blob_to_proofs_ms": path_ms,
+              "fft_2_20_ms": fft20_ms, "crs_s": crs_s, "setup_s": setup_s,
+              "launches": launches, "kernels": kernels,
+              "kernel_timing": timing, "fk20_profile": profile}
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process, for
+sm_90a, into ``build/kernels/lib<name>-<hash>.so`` at the repository root
+(listed in .gitignore) and loaded with ctypes: a plain C interface, no
+PyTorch headers, so a build takes seconds. The hash covers the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built at import: the first kernel call builds what it needs,
+and `build_all` starts every build at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
+SOURCES = ("fr_kernels", "g1_kernels")
+FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every C entry point, by library
+SIGNATURES = {
+    "fr_kernels": {
+        "kzg_mont_mul": (_I, _P, _P, _P, _I, _I, _P),
+        "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _P),
+    },
+    "g1_kernels": {
+        "kzg_g1_scalar_mul": (_P,) * 7 + (_I, _I, _P),
+        "kzg_g1_glv_butterfly": (_P,) * 14 + (_I, _I, _P),
+    },
+}
+
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(os.path.abspath(BUILD_DIR),
+                        f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library is built; returns
+    (process or None, library path, log path)."""
+    path = _lib_path(name)
+    log = path[:-3] + ".log"
+    if os.path.exists(path):
+        return None, path, log
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [_nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+            stdout=f, stderr=subprocess.STDOUT)
+    return (proc, tmp), path, log
+
+
+def _finish(started, path: str, log: str) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    if proc.wait() != 0:
+        with open(log) as f:
+            raise RuntimeError(f"nvcc failed for {path}:\n{f.read()}")
+    os.replace(tmp, path)
+
+
+def build_all() -> dict:
+    """Build every kernel library in parallel (one nvcc per source).
+    Returns {name: nvcc log text} for the libraries built now."""
+    with _lock:
+        jobs = {n: _start(n) for n in SOURCES}
+        logs = {}
+        for n, (started, path, log) in jobs.items():
+            _finish(started, path, log)
+            if started is not None:
+                with open(log) as f:
+                    logs[n] = f.read()
+        return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    with _lock:
+        started, path, log = _start(name)
+        _finish(started, path, log)
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,98 @@
+// Field kernels K1 (mont_mul) and K2 (fr_butterfly_stage), built by nvcc
+// for sm_90a into a shared library with a plain C interface (loaded by
+// kzg_tpu_torch/build.py through ctypes).
+//
+// K1 replaces kzg_tpu/field/pallas_kernels.py::_mul_fn (mont_mul_pallas)
+// and, as the fr_scale wrapper, ::_canon_scale_fn (canon_scale): the
+// port's FFT never leaves the canonical domain, so the exit kernel reduces
+// to a multiply by the broadcast constant 2^-k.
+// K2 replaces ::_butterfly_lazy_fn (butterfly_lazy): one radix-2 DIT
+// stage, hi = a + b*tw, lo = a - b*tw, here in place on canonical words.
+//
+// Bound on this card: a canonical product moves 3 x 4N bytes (a, b, out)
+// and does 2N^2 + N 32x32->64 multiply-adds (300 for Fp, 136 for Fr).
+// Against the published rates (3.35 TB/s; 67 TFLOP/s float32, taken as
+// the rate of 32-bit multiply-adds) both kernels are bound by bytes, and
+// the two bounds are within a few times of each other, since the card
+// issues integer multiplies at no more than half its float32 rate. At the
+// main path's widths (at most 20480 lanes) a launch is bound by latency
+// instead: each thread runs one long dependent carry chain. Design: one
+// thread per lane, words in registers, no shared memory, loops fully
+// unrolled (wgmma/TMA-based limb products are later work).
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    mont_mul_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ a,
+                    const int32_t* __restrict__ b, int n, int b_bcast) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[N], y[N];
+  kzg::load<N>(x, a + (size_t)i * N);
+  kzg::load<N>(y, b + (b_bcast ? 0 : (size_t)i * N));
+  kzg::mul<N>(x, x, y);
+  kzg::store<N>(out + (size_t)i * N, x);
+}
+
+// One DIT stage of width m = 2^(log_half+1) over `batch` rows of 2^log_n
+// Fr values; thread t owns butterfly (row, group, j). The twiddle of
+// position j is roots[j * stride] of the domain table.
+__global__ void __launch_bounds__(kThreads)
+    butterfly_stage_kernel(int32_t* __restrict__ x,
+                           const int32_t* __restrict__ roots, int log_n,
+                           int log_half, int stride, int total) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int row = t >> (log_n - 1);
+  const int r = t & ((1 << (log_n - 1)) - 1);
+  const int g = r >> log_half;
+  const int j = r & ((1 << log_half) - 1);
+  const size_t ia = ((size_t)row << log_n) + ((size_t)g << (log_half + 1)) + j;
+  const size_t ib = ia + ((size_t)1 << log_half);
+  uint32_t a[8], b[8], hi[8], lo[8];
+  kzg::load<8>(a, x + ia * 8);
+  kzg::load<8>(b, x + ib * 8);
+  if (log_half > 0) {  // stage 1's twiddle is 1: no multiply
+    uint32_t w[8];
+    kzg::load<8>(w, roots + (size_t)j * stride * 8);
+    kzg::mul<8>(b, b, w);
+  }
+  kzg::add<8>(hi, a, b);
+  kzg::sub<8>(lo, a, b);
+  kzg::store<8>(x + ia * 8, hi);
+  kzg::store<8>(x + ib * 8, lo);
+}
+
+int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int kzg_mont_mul(int n_words, void* out, const void* a,
+                            const void* b, int n, int b_bcast, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_words == 8) {
+    mont_mul_kernel<8><<<blocks(n), kThreads, 0, s>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, n, b_bcast);
+  } else if (n_words == 12) {
+    mont_mul_kernel<12><<<blocks(n), kThreads, 0, s>>>(
+        (int32_t*)out, (const int32_t*)a, (const int32_t*)b, n, b_bcast);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_fr_butterfly_stage(void* x, const void* roots, int log_n,
+                                      int log_half, int stride, int total,
+                                      void* stream) {
+  butterfly_stage_kernel<<<blocks(total), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (int32_t*)x, (const int32_t*)roots, log_n, log_half, stride, total);
+  return (int)cudaGetLastError();
+}

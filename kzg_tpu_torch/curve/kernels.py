@@ -1,0 +1,234 @@
+"""G1 ladder kernels K3 (`g1_scalar_mul`) and K4 (`g1_glv_butterfly`),
+with their plain PyTorch versions.
+
+Each wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel (csrc/g1_kernels.cu) or raises. Each launch
+adds one to the wrapper's entry in `LAUNCHES`.
+
+Both ladders run the complete Renes-Costello-Batina projective formulas
+(a = 0, b3 = 12) in the operation order of kzg_tpu/curve/pallas_g1.py,
+with Jacobian points in and out. Infinity enters as any Z == 0 and leaves
+as all-zero words. The plain versions run the same formulas on the
+redundant int64 engine (field/limbs.py) and reduce once at the end, so
+their output words equal the kernels'.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from .. import build
+from ..field import fp, limbs
+from ..field.kernels import check_words, stream_of
+from .glv import GLV_BETA
+from .weierstrass import JacobianPoint
+
+LAUNCHES = {"g1_scalar_mul": 0, "g1_glv_butterfly": 0}
+
+NP = fp.N_WORDS
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---- plain version: RCB formulas on the redundant int64 engine ----
+class _Plain:
+    def __init__(self, device):
+        self.c = limbs.consts(fp.SPEC, device)
+        L = fp.SPEC.n_limbs
+        self.one = torch.tensor(limbs.int_to_limbs(fp.SPEC.one_mont, L),
+                                dtype=torch.int64, device=device)
+        self.beta = torch.tensor(
+            limbs.int_to_limbs(fp.SPEC.to_mont_int(GLV_BETA), L),
+            dtype=torch.int64, device=device)
+
+    def M(self, a, b):
+        return limbs.mul_lazy(self.c, a, b)
+
+    def proj_add(self, p, q):
+        """RCB15 Algorithm 7 (a = 0)."""
+        M = self.M
+        x1, y1, z1 = p
+        x2, y2, z2 = q
+        t0 = M(x1, x2)
+        t1 = M(y1, y2)
+        t2 = M(z1, z2)
+        t3 = M(x1 + y1, x2 + y2) - (t0 + t1)
+        t4 = M(y1 + z1, y2 + z2) - (t1 + t2)
+        y3 = M(x1 + z1, x2 + z2) - (t0 + t2)
+        t0 = 3 * t0
+        t2 = 12 * t2
+        z3 = t1 + t2
+        t1 = t1 - t2
+        y3 = 12 * y3
+        x3 = M(t3, t1) - M(t4, y3)
+        y3 = M(t1, z3) + M(y3, t0)
+        z3 = M(z3, t4) + M(t0, t3)
+        return x3, y3, z3
+
+    def proj_double(self, p):
+        """RCB15 Algorithm 9 (a = 0)."""
+        M = self.M
+        x, y, z = p
+        t0 = M(y, y)
+        z3 = 8 * t0
+        t1 = M(y, z)
+        t2 = 12 * M(z, z)
+        x3 = M(t2, z3)
+        y3 = t0 + t2
+        z3 = M(t1, z3)
+        t0 = t0 - 3 * t2
+        y3 = x3 + M(t0, y3)
+        x3 = 2 * M(t0, M(x, y))
+        return x3, y3, z3
+
+    def jac_to_proj(self, p: JacobianPoint):
+        """Jacobian words -> projective (XZ : Y : Z^3); Z = 0 -> (0:1:0)."""
+        inf = fp.is_zero(p.z).unsqueeze(-1)
+        x, y, z = (limbs.words_to_limbs(c) for c in p)
+        return (self.M(x, z), torch.where(inf, self.one, y),
+                self.M(self.M(z, z), z))
+
+    def to_jac(self, p) -> JacobianPoint:
+        """Projective -> canonical Jacobian words (XZ, YZ^2, Z)."""
+        x, y, z = p
+        out = (self.M(x, z), self.M(y, self.M(z, z)), z)
+        return JacobianPoint(*(limbs.limbs_to_words(limbs.canon(self.c, v))
+                               for v in out))
+
+    def identity(self, like):
+        zero = torch.zeros_like(like)
+        return zero, self.one.expand(like.shape).clone(), zero.clone()
+
+    def table(self, p):
+        """(8, 3, n, L) stack of [1..8]P, (k+1)P = kP + P."""
+        tbl = [p]
+        for _ in range(7):
+            tbl.append(self.proj_add(tbl[-1], p))
+        return torch.stack([torch.stack(t) for t in tbl])
+
+    def apply_digit(self, acc, tbl, d, phi: bool):
+        """acc += sign(d) tbl[|d|-1] (x scaled by beta if phi); d == 0
+        leaves acc as it is."""
+        lanes = torch.arange(d.shape[0], device=d.device)
+        idx = (d.abs() - 1).clamp(min=0).long()
+        sx, sy, sz = tbl[idx, :, lanes].unbind(1)
+        sy = torch.where((d < 0).unsqueeze(-1), -sy, sy)
+        if phi:
+            sx = self.M(sx, self.beta)
+        added = self.proj_add(acc, (sx, sy, sz))
+        keep = (d == 0).unsqueeze(-1)
+        return tuple(torch.where(keep, a, b) for a, b in zip(acc, added))
+
+    def ladder(self, base, digit_rows):
+        """sum over (digits, phi) rows of the Horner ladder on `base`."""
+        tbl = self.table(base)
+        acc = self.identity(base[0])
+        n_windows = digit_rows[0][0].shape[-1]
+        for w in range(n_windows - 1, -1, -1):
+            for _ in range(4):
+                acc = self.proj_double(acc)
+            for dig, phi in digit_rows:
+                acc = self.apply_digit(acc, tbl, dig[:, w], phi)
+        return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _plain(device) -> _Plain:
+    return _Plain(torch.device(device))
+
+
+def _flat(p: JacobianPoint) -> JacobianPoint:
+    return JacobianPoint(*(c.reshape(-1, NP) for c in p))
+
+
+def _shaped(p: JacobianPoint, shape) -> JacobianPoint:
+    return JacobianPoint(*(c.reshape(tuple(shape) + (NP,)) for c in p))
+
+
+def g1_scalar_mul_plain(p: JacobianPoint, digits) -> JacobianPoint:
+    shape = p.x.shape[:-1]
+    pl = _plain(p.x.device)
+    dig = digits.reshape(-1, digits.shape[-1])
+    acc = pl.ladder(pl.jac_to_proj(_flat(p)), [(dig, False)])
+    return _shaped(pl.to_jac(acc), shape)
+
+
+def g1_glv_butterfly_plain(a: JacobianPoint, b: JacobianPoint, d1, d2):
+    shape = a.x.shape[:-1]
+    pl = _plain(a.x.device)
+    t = pl.ladder(pl.jac_to_proj(_flat(b)),
+                  [(d1.reshape(-1, d1.shape[-1]), False),
+                   (d2.reshape(-1, d2.shape[-1]), True)])
+    ap = pl.jac_to_proj(_flat(a))
+    lo = pl.to_jac(pl.proj_add(ap, t))
+    hi = pl.to_jac(pl.proj_add(ap, (t[0], -t[1], t[2])))
+    return _shaped(lo, shape), _shaped(hi, shape)
+
+
+# ---- kernel wrappers ----
+def _check_points(what: str, n: int, *ps: JacobianPoint) -> None:
+    for p in ps:
+        for c in p:
+            check_words(c, NP, what)
+            if c.numel() != n * NP:
+                raise ValueError(f"{what}: point batch sizes differ")
+
+
+def _check_digits(what: str, d: torch.Tensor, n: int, device) -> None:
+    if d.device != device or d.dtype != torch.int32:
+        raise ValueError(f"{what}: digits must be int32 on {device}")
+    if d.numel() != n * d.shape[-1] or not d.is_contiguous():
+        raise ValueError(f"{what}: digits must be contiguous (n, windows)")
+    if d.shape[-1] > 64:
+        raise ValueError(f"{what}: at most 64 windows")
+
+
+def g1_scalar_mul(p: JacobianPoint, digits) -> JacobianPoint:
+    """K3: per lane p * sum_j digits[..., j] 16^j for signed digits in
+    [-8, 8], LSB-first (fr.scalar_windows_signed), Jacobian in and out
+    (replaces kzg_tpu/curve/pallas_g1.py::_scalar_mul_fn)."""
+    if p.x.device.type == "cpu":
+        return g1_scalar_mul_plain(p, digits)
+    n = p.x.numel() // NP
+    _check_points("g1_scalar_mul", n, p)
+    _check_digits("g1_scalar_mul", digits, n, p.x.device)
+    out = JacobianPoint(*(torch.empty_like(c) for c in p))
+    if n:
+        lib = build.library("g1_kernels")
+        LAUNCHES["g1_scalar_mul"] += 1
+        build.check(lib.kzg_g1_scalar_mul(
+            *(c.data_ptr() for c in out), *(c.data_ptr() for c in p),
+            digits.data_ptr(), digits.shape[-1], n, stream_of(p.x)),
+            "g1_scalar_mul")
+    return out
+
+
+def g1_glv_butterfly(a: JacobianPoint, b: JacobianPoint, d1, d2):
+    """K4: per lane t = k1 B + k2 phi(B) from GLV digit rows d1, d2
+    (..., 33), then (lo, hi) = (A + t, A - t). B must lie in the
+    r-torsion subgroup (replaces
+    kzg_tpu/curve/pallas_g1.py::_scalar_mul_glv_fn)."""
+    if a.x.device.type == "cpu":
+        return g1_glv_butterfly_plain(a, b, d1, d2)
+    n = a.x.numel() // NP
+    _check_points("g1_glv_butterfly", n, a, b)
+    for d in (d1, d2):
+        _check_digits("g1_glv_butterfly", d, n, a.x.device)
+    if d1.shape != d2.shape:
+        raise ValueError("g1_glv_butterfly: digit rows differ in shape")
+    lo = JacobianPoint(*(torch.empty_like(c) for c in a))
+    hi = JacobianPoint(*(torch.empty_like(c) for c in a))
+    if n:
+        lib = build.library("g1_kernels")
+        LAUNCHES["g1_glv_butterfly"] += 1
+        build.check(lib.kzg_g1_glv_butterfly(
+            *(c.data_ptr() for c in lo), *(c.data_ptr() for c in hi),
+            *(c.data_ptr() for c in a), *(c.data_ptr() for c in b),
+            d1.data_ptr(), d2.data_ptr(), d1.shape[-1], n, stream_of(a.x)),
+            "g1_glv_butterfly")
+    return lo, hi

@@ -1,0 +1,72 @@
+"""The BLS12-381 base field Fp (381-bit) as batched 32-bit words.
+
+An Fp batch is a torch.int32 tensor (..., 12) in Montgomery form
+(R = 2^384), always fully reduced. `mul`/`sqr` run on kernel K1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import limbs
+from .constants import FP_MODULUS
+from .kernels import mont_mul
+from .limbs import FieldSpec
+
+SPEC = FieldSpec(name="Fp", modulus=FP_MODULUS, n_words=12)
+N_WORDS = SPEC.n_words
+
+
+def add(a, b):
+    return limbs.add(SPEC, a, b)
+
+
+def sub(a, b):
+    return limbs.sub(SPEC, a, b)
+
+
+def neg(a):
+    return limbs.neg(SPEC, a)
+
+
+def mul(a, b):
+    return mont_mul(SPEC, a, b)
+
+
+def sqr(a):
+    return mont_mul(SPEC, a, a)
+
+
+def inv(a):
+    """Fermat inverse a^(p-2), lane-parallel (square-and-multiply over
+    the static exponent, MSB first); 0 -> 0."""
+    e = SPEC.modulus - 2
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = sqr(acc)
+        if bit == "1":
+            acc = mul(acc, a)
+    return acc
+
+
+eq = limbs.eq
+is_zero = limbs.is_zero
+select = limbs.select
+
+
+def one_like(a) -> torch.Tensor:
+    return SPEC.words([SPEC.one_mont], a.device)[0].expand(a.shape).clone()
+
+
+def zeros(shape=(), device="cuda") -> torch.Tensor:
+    return torch.zeros(tuple(shape) + (N_WORDS,), dtype=torch.int32,
+                       device=device)
+
+
+def from_int(values, device="cuda") -> torch.Tensor:
+    return SPEC.encode(values, device)
+
+
+def to_int(t) -> np.ndarray:
+    return SPEC.decode(t)

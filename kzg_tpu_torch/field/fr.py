@@ -1,0 +1,79 @@
+"""The BLS12-381 scalar field Fr as batched 32-bit words.
+
+An Fr batch is a torch.int32 tensor (..., 8) in Montgomery form
+(R = 2^256), always fully reduced. `mul` runs on kernel K1; add, sub and
+neg are plain tensor code.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import limbs
+from .constants import FR_MODULUS
+from .kernels import mont_mul
+from .limbs import FieldSpec
+
+SPEC = FieldSpec(name="Fr", modulus=FR_MODULUS, n_words=8)
+N_WORDS = SPEC.n_words
+
+
+def add(a, b):
+    return limbs.add(SPEC, a, b)
+
+
+def sub(a, b):
+    return limbs.sub(SPEC, a, b)
+
+
+def neg(a):
+    return limbs.neg(SPEC, a)
+
+
+def mul(a, b):
+    return mont_mul(SPEC, a, b)
+
+
+def zeros(shape=(), device="cuda") -> torch.Tensor:
+    return torch.zeros(tuple(shape) + (N_WORDS,), dtype=torch.int32,
+                       device=device)
+
+
+def from_mont(a) -> torch.Tensor:
+    """Montgomery words -> canonical words (REDC by the integer 1, K1)."""
+    one = SPEC.words([1], a.device)[0]
+    return mul(a, one)
+
+
+# bias for signed-window recoding: 63 low nibbles of 8 (top nibble 0)
+_SIGNED_WINDOW_BIAS = int("8" * 63, 16)
+
+
+def scalar_windows_signed(a_mont) -> torch.Tensor:
+    """Signed 4-bit windows of Montgomery-form scalars: int32 (..., 64)
+    LSB-first digits s with sum_j s_j 16^j == a, s_j in [-8, 7] for
+    j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130).
+
+    Adding 0x0888...8 (63 eights) shifts every low digit by +8 with the
+    carries folded in; a < 2^255 keeps the biased sum below 2^256."""
+    canon = limbs.words_to_limbs(from_mont(a_mont))      # (..., 16)
+    bias = torch.tensor(limbs.int_to_limbs(_SIGNED_WINDOW_BIAS, 16),
+                        dtype=torch.int64, device=canon.device)
+    biased, _ = limbs.normalize(canon + bias)
+    shifts = torch.tensor([0, 4, 8, 12], dtype=torch.int64,
+                          device=canon.device)
+    wins = ((biased.unsqueeze(-1) >> shifts) & 0xF).flatten(-2)
+    wins[..., :63] -= 8
+    return wins.to(torch.int32)
+
+
+# ---- host conversions ----
+def from_int(values, device="cuda") -> torch.Tensor:
+    """Python int (or nested lists) -> Montgomery words, reduced mod r."""
+    return SPEC.encode(values, device)
+
+
+def to_int(t) -> np.ndarray:
+    """Montgomery words -> object array of canonical Python ints."""
+    return SPEC.decode(t)

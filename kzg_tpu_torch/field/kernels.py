@@ -1,0 +1,141 @@
+"""Field kernels K1 (`mont_mul`, and its `fr_scale` exit form) and K2
+(`fr_butterfly_stage`), with their plain PyTorch versions.
+
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the kernel (csrc/fr_kernels.cu) or raises. Each
+launch adds one to the wrapper's entry in `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import build
+from . import limbs
+from .limbs import FieldSpec
+
+LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0}
+
+FR_WORDS = 8
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_words(t: torch.Tensor, n_words: int, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+    if t.shape[-1] != n_words:
+        raise ValueError(f"{what}: last dim {t.shape[-1]} != {n_words}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_mont_mul(spec: FieldSpec, a, b, what: str) -> torch.Tensor:
+    """REDC(a*b) on the card; b is (..., N) like a, or one element (N,)."""
+    N = spec.n_words
+    check_words(a, N, what)
+    check_words(b, N, what)
+    if b.device != a.device:
+        raise ValueError(f"{what}: operands on different devices")
+    bcast = b.dim() == 1
+    if not bcast and b.shape != a.shape:
+        raise ValueError(f"{what}: shapes {tuple(a.shape)} {tuple(b.shape)}")
+    out = torch.empty_like(a)
+    n = a.numel() // N
+    if n:
+        lib = build.library("fr_kernels")
+        LAUNCHES[what] += 1
+        build.check(lib.kzg_mont_mul(N, out.data_ptr(), a.data_ptr(),
+                                     b.data_ptr(), n, int(bcast),
+                                     stream_of(a)), what)
+    return out
+
+
+def mont_mul_plain(spec: FieldSpec, a, b) -> torch.Tensor:
+    return limbs.mont_mul_plain(spec, a, b)
+
+
+def mont_mul(spec: FieldSpec, a, b) -> torch.Tensor:
+    """K1: elementwise REDC(a*b) for Fr or Fp words (replaces
+    kzg_tpu/field/pallas_kernels.py::_mul_fn). a and b broadcast; on the
+    card the broadcast is materialised unless b is one element."""
+    if a.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if b.dim() == 1 and a.shape == shape:
+        bb = b
+    else:
+        bb = b.expand(shape).contiguous()
+    aa = a.expand(shape).contiguous()
+    return _launch_mont_mul(spec, aa, bb, "mont_mul")
+
+
+def fr_scale_plain(spec: FieldSpec, x, c) -> torch.Tensor:
+    return limbs.mont_mul_plain(spec, x, c)
+
+
+def fr_scale(spec: FieldSpec, x, c) -> torch.Tensor:
+    """Exit of an inverse FFT: x * c for one broadcast Montgomery constant
+    c (N,), canonical (K1 under its own count; replaces
+    kzg_tpu/field/pallas_kernels.py::_canon_scale_fn)."""
+    if x.device.type == "cpu":
+        return fr_scale_plain(spec, x, c)
+    if c.dim() != 1:
+        raise ValueError("fr_scale: c must be one element (N,)")
+    return _launch_mont_mul(spec, x, c, "fr_scale")
+
+
+def fr_butterfly_stage_plain(spec: FieldSpec, x, roots, log_half: int,
+                             stride: int) -> torch.Tensor:
+    """One DIT stage over x (batch, n, 8): within each group of
+    m = 2^(log_half+1), position j pairs with j + m/2 and twiddle
+    roots[j * stride]; hi = a + b*tw, lo = a - b*tw. Returns a new
+    tensor."""
+    batch, n, N = x.shape
+    half = 1 << log_half
+    xs = x.reshape(batch, n // (2 * half), 2, half, N)
+    a, b = xs[:, :, 0], xs[:, :, 1]
+    if log_half > 0:
+        tw = roots[: half * stride : stride]
+        b = limbs.mont_mul_plain(spec, b, tw.expand(b.shape))
+    hi = limbs.add(spec, a, b)
+    lo = limbs.sub(spec, a, b)
+    return torch.stack((hi, lo), dim=2).reshape(batch, n, N)
+
+
+def fr_butterfly_stage(spec: FieldSpec, x, roots, log_half: int,
+                       stride: int) -> torch.Tensor:
+    """K2: one radix-2 DIT stage of canonical Fr words, in place on x
+    (batch, n, 8), which is returned (replaces
+    kzg_tpu/field/pallas_kernels.py::_butterfly_lazy_fn)."""
+    if x.device.type == "cpu":
+        x.copy_(fr_butterfly_stage_plain(spec, x, roots, log_half, stride))
+        return x
+    check_words(x, FR_WORDS, "fr_butterfly_stage")
+    check_words(roots, FR_WORDS, "fr_butterfly_stage")
+    if x.dim() != 3 or roots.device != x.device:
+        raise ValueError("fr_butterfly_stage: x must be (batch, n, 8) and "
+                         "roots on its device")
+    batch, n, _ = x.shape
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n or not 0 <= log_half < log_n:
+        raise ValueError("fr_butterfly_stage: bad width or stage")
+    if ((1 << log_half) - 1) * stride >= roots.shape[0]:
+        raise ValueError("fr_butterfly_stage: twiddle index out of range")
+    total = batch * n // 2
+    if total:
+        lib = build.library("fr_kernels")
+        LAUNCHES["fr_butterfly_stage"] += 1
+        build.check(lib.kzg_fr_butterfly_stage(
+            x.data_ptr(), roots.data_ptr(), log_n, log_half, stride, total,
+            stream_of(x)), "fr_butterfly_stage")
+    return x

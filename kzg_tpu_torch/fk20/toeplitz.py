@@ -1,0 +1,41 @@
+"""Toeplitz matrix-by-CRS-vector products in Fourier space, the FK20
+core (reference: toeplitzPart1/2/3, fk20_single.go:40-87):
+    T x = IFFT_G1( FFT_Fr(c) o FFT_G1([x; 0]) )[:n]
+Part 1 is a precompute, part 2 one batched scalar multiply (K3), part 3
+one inverse G1 FFT (K4). Every part takes leading batch axes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..curve import g1
+from ..curve.fft_g1 import fft_g1
+from ..curve.weierstrass import JacobianPoint, map_points
+from ..ntt.domain import FFTSettings
+from ..ntt.fft_fr import fft
+
+
+def concat_points(*ps: JacobianPoint) -> JacobianPoint:
+    return map_points(lambda *cs: torch.cat(cs, dim=-2), *ps)
+
+
+def toeplitz_part1(fs: FFTSettings, x: JacobianPoint) -> JacobianPoint:
+    """Zero-extend (..., n) CRS points to 2n and G1-FFT them."""
+    n = x.x.shape[-2]
+    inf = g1.infinity(tuple(x.x.shape[:-2]) + (n,), x.x.device)
+    return fft_g1(fs, concat_points(x, inf))
+
+
+def toeplitz_part2(fs: FFTSettings, toeplitz_coeffs,
+                   x_ext_fft: JacobianPoint) -> JacobianPoint:
+    """hExtFFT[i] = FFT(toeplitz_coeffs)[i] * xExtFFT[i]; coeffs
+    (..., 2k, 8) against (..., 2k) points: one batched K3 launch."""
+    return g1.mul(x_ext_fft, fft(fs, toeplitz_coeffs))
+
+
+def toeplitz_part3(fs: FFTSettings, h_ext_fft: JacobianPoint) -> JacobianPoint:
+    """Inverse G1-FFT and keep the first half."""
+    n2 = h_ext_fft.x.shape[-2]
+    h = fft_g1(fs, h_ext_fft, inverse=True)
+    return map_points(lambda c: c[..., : n2 // 2, :], h)

@@ -1,0 +1,193 @@
+"""Helpers shared by the port's tests (tests/port/test_torch_*.py).
+
+The same inputs, made from a numpy seed, go through the JAX package (on
+its CPU "vector" engine, as the JAX tests run it) and through
+kzg_tpu_torch with device="cpu", where every kernel wrapper runs its
+plain version. Tolerance is exact: field values are compared as canonical
+ints (or as the same words after the 16 <-> 32-bit repack), G1 points in
+affine form with None for infinity.
+
+The JAX package's G1 paths and Fr FFTs compile for a minute or more each
+on the CPU, which would crowd the JAX suite out of its time limit. For
+those, make_reference.py runs the JAX package once on the inputs built
+here and records its outputs in reference_outputs.npz. The JAX package is
+frozen (the port may not edit it), so its recorded outputs stand for it.
+Each record carries a hash of its inputs, which the tests check.
+"""
+
+import functools
+import hashlib
+import os
+
+import numpy as np
+
+CPU = "cpu"
+REFERENCE_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "reference_outputs.npz")
+# kzg_env's secret and CRS size (tests/conftest.py), tests/test_fk20.py's
+# polynomial and widths
+TEST_SECRET = 1927409816240961209460912649124
+CRS_SIZE = 17
+FK20_COEFFS = [1, 2, 3, 4, 7, 8, 9, 10]
+FK20_N, FK20_N2 = 8, 16
+FK20_CHUNKS = (2, 4)
+FFT_SCALES = tuple(range(4, 11))
+
+
+def random_ints(rng, n: int, modulus: int) -> list:
+    """n uniform ints mod `modulus` from five 63-bit draws each."""
+    w = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.int64).tolist()
+    return [(a + (b << 63) + (c << 126) + (d << 189) + (e << 252)) % modulus
+            for a, b, c, d, e in w]
+
+
+def edge_ints(modulus: int) -> list:
+    """Values at the ends of the range, where a final reduction matters."""
+    return [0, 1, 2, modulus - 1, modulus - 2, modulus - 3,
+            modulus - (1 << 32), modulus - (1 << 200), (1 << 255) % modulus,
+            (1 << 256) % modulus, modulus >> 1]
+
+
+def port_to_ref(p):
+    """Port JacobianPoint -> JAX package JacobianPoint (jnp arrays)."""
+    import jax.numpy as jnp
+    from kzg_tpu.curve.weierstrass import JacobianPoint as RefPoint
+
+    from kzg_tpu_torch import convert
+
+    return RefPoint(*(jnp.asarray(c) for c in convert.point_to_ref(p)))
+
+
+def ref_to_port(p):
+    """JAX package JacobianPoint -> port JacobianPoint on the CPU."""
+    from kzg_tpu_torch import convert
+
+    return convert.point_from_ref(*(np.asarray(c) for c in p), device=CPU)
+
+
+def bitrev(i: int, bits: int) -> int:
+    return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def eval_poly(coeffs, x: int, m: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % m
+    return acc
+
+
+def coset_proofs_oracle(coeffs, n_dom: int, l: int, secret: int,
+                        rbo: bool) -> list:
+    """Coset proofs by definition, over Python ints: proof j is [q(s)]G
+    with q = f div (X^l - x0^l), x0 = w^j for the n_dom/l cosets of the
+    n_dom-th roots of unity (w^bitrev(j) when `rbo`)."""
+    from kzg_tpu_torch.field.constants import FR_MODULUS as r
+    from kzg_tpu_torch.utils import host_ec
+
+    n = len(coeffs)
+    k = n_dom // l
+    bits = (k - 1).bit_length()
+    w = pow(7, (r - 1) // n_dom, r)
+    s = secret % r
+    g = host_ec.g1_generator()
+    out = []
+    for j in range(k):
+        c = pow(pow(w, bitrev(j, bits) if rbo else j, r), l, r)
+        q = [0] * n
+        for i in range(n - 1 - l, -1, -1):
+            q[i] = (coeffs[i + l] + c * (q[i + l] if i + l < n else 0)) % r
+        out.append(host_ec.g1_mul(g, eval_poly(q, s, r)))
+    return out
+
+
+# ---- inputs of the recorded comparisons (make_reference.py) ----
+def _r():
+    from kzg_tpu_torch.field.constants import FR_MODULUS
+
+    return FR_MODULUS
+
+
+def fft_input(scale: int) -> list:
+    return random_ints(np.random.default_rng(scale), 1 << scale, _r())
+
+
+def subgroup_affine(seed: int, n: int) -> list:
+    """n r-torsion points k_i G as affine ints."""
+    from kzg_tpu_torch.utils import host_ec
+
+    g = host_ec.g1_generator()
+    return [host_ec.g1_mul(g, k)
+            for k in random_ints(np.random.default_rng(seed), n, _r())]
+
+
+def with_zero_infinity(p, lane: int):
+    """Lane `lane` set to all-zero words, the ladders' infinity."""
+    from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+
+    out = JacobianPoint(*(c.clone() for c in p))
+    for c in out:
+        c[lane] = 0
+    return out
+
+
+def mul_case():
+    """5 lanes, the batch of the JAX package's own g1.mul tests: a random
+    point and scalar, infinity as (1, 1, 0) and as all-zero words, and
+    the scalars 0, 1 and r-1. -> (affine, port points, scalars)."""
+    from kzg_tpu_torch.curve import g1
+
+    aff = subgroup_affine(2, 5)
+    aff[1] = aff[2] = None
+    pts = with_zero_infinity(g1.from_affine_ints(aff, CPU), 2)
+    r = _r()
+    ks = random_ints(np.random.default_rng(3), 2, r) + [0, 1, r - 1]
+    return aff, pts, ks
+
+
+def fft_g1_case():
+    """8 points for the width-8 G1 FFT on a width-32 domain: the shape of
+    part 1 in the l = 2 FK20 settings."""
+    from kzg_tpu_torch.curve import g1
+
+    aff = subgroup_affine(18, 8)
+    return aff, g1.from_affine_ints(aff, CPU)
+
+
+def tree_reduce_case():
+    """(3, 2) points: an odd row count."""
+    from kzg_tpu_torch.curve import g1
+    from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+
+    aff = subgroup_affine(33, 6)
+    pts = g1.from_affine_ints(aff, CPU)
+    return aff, JacobianPoint(*(c.reshape(3, 2, 12) for c in pts))
+
+
+def inputs_hash(*inputs) -> str:
+    """sha256 of arrays (shape and bytes) and plain values (repr)."""
+    h = hashlib.sha256()
+    for a in inputs:
+        if isinstance(a, (int, str, list, tuple)):
+            h.update(repr(a).encode())
+        else:
+            a = np.ascontiguousarray(np.asarray(a))
+            h.update(str(a.shape).encode() + a.tobytes())
+    return h.hexdigest()
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_file():
+    with np.load(REFERENCE_FILE) as f:
+        return {k: f[k] for k in f.files}
+
+
+def reference(key: str, *inputs):
+    """The recorded JAX output `key` (an array, or a JAX-layout point batch
+    for a key recorded as key:x, key:y, key:z), after checking that
+    `inputs` are the ones it was recorded on."""
+    rec = _reference_file()
+    assert str(rec[key + ":inputs"]) == inputs_hash(*inputs), \
+        f"{key}: inputs changed; rerun tests/port/make_reference.py"
+    if key in rec:
+        return rec[key]
+    return tuple(rec[f"{key}:{c}"] for c in "xyz")

@@ -1,0 +1,53 @@
+"""What the CPU can check of the CUDA sources, which only the card
+compiles: the field and curve constants in csrc/*.cuh equal the port's
+FieldSpec values, and every C entry point bound in build.py exists with
+the argument count given to ctypes."""
+
+import os
+import re
+
+import pytest
+
+from kzg_tpu_torch import build
+from kzg_tpu_torch.curve.glv import GLV_BETA
+from kzg_tpu_torch.field import fp, fr
+
+
+def source(name: str) -> str:
+    with open(os.path.join(build.CSRC, name)) as f:
+        return f.read()
+
+
+def words_after(text: str, anchor: str, count: int) -> int:
+    """The `count` hex words of the first array after `anchor`, as one
+    little-endian integer."""
+    tail = text[text.index(anchor):]
+    words = re.findall(r"0x([0-9a-fA-F]{8})u", tail)[:count]
+    assert len(words) == count
+    return sum(int(w, 16) << (32 * i) for i, w in enumerate(words))
+
+
+@pytest.mark.parametrize("spec", [fr.SPEC, fp.SPEC], ids=["Fr", "Fp"])
+def test_field_header_constants(spec):
+    text = source("field.cuh")
+    block = text[text.index(f"struct Field<{spec.n_words}>"):]
+    n0 = int(re.search(r"n0 = 0x([0-9a-f]{8})u", block).group(1), 16)
+    assert n0 == spec.n0
+    assert words_after(block, "M[", spec.n_words) == spec.modulus
+
+
+def test_curve_header_constants():
+    text = source("g1.cuh")
+    assert words_after(text, "void fp_one", 12) == fp.SPEC.one_mont
+    assert words_after(text, "void fp_beta", 12) == \
+        fp.SPEC.to_mont_int(GLV_BETA)
+
+
+def test_entry_points_match_bindings():
+    for lib, fns in build.SIGNATURES.items():
+        assert lib in build.SOURCES
+        text = source(f"{lib}.cu")
+        for fn, argtypes in fns.items():
+            m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+            assert m, fn
+            assert len(m.group(1).split(",")) == len(argtypes), fn

@@ -1,0 +1,37 @@
+"""The port stands alone: importing every module of kzg_tpu_torch loads
+neither JAX nor the JAX package, and builds no kernel."""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+PROGRAM = """
+import importlib, json, pkgutil, sys
+import kzg_tpu_torch
+from kzg_tpu_torch import build
+mods = [m.name for m in pkgutil.walk_packages(kzg_tpu_torch.__path__,
+                                              "kzg_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "kzg_tpu."))
+             or m == "kzg_tpu")
+print(json.dumps({"modules": len(mods), "loaded": bad,
+                  "built": build.library.cache_info().currsize}))
+"""
+
+
+def test_import_loads_no_jax_and_builds_nothing():
+    # a fresh interpreter: this one has JAX loaded by the root conftest
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    out = subprocess.run([sys.executable, "-c", PROGRAM], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    seen = json.loads(out.stdout.splitlines()[-1])
+    assert seen["modules"] >= 20
+    assert seen["loaded"] == []
+    assert seen["built"] == 0
