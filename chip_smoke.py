@@ -10,15 +10,23 @@ Phases; any failure raises and the script exits non-zero with no result:
      for bit, at the main path's shapes;
   3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
      and a few outputs against direct evaluation with Python ints;
-  4. the main path at the PeerDAS shape (EIP-7594: a 4096-element blob
+  4. the proof path at the PeerDAS shape (EIP-7594: a 4096-element blob
      extended to 8192, 64-element cells, 128 cell proofs): device CRS of
      4096 points, FK20MultiSettings(n2=8192, l=64), blob -> coefficients
-     (inverse FFT) -> da_using_fk20_multi. Every launch counter must be
-     > 0; the 128 proofs must equal the same call on the plain path on the
-     card and an exact host oracle ([q(s)]G for the known secret);
-  5. times on the card after warm-up: whole calls with CUDA events,
-     each kernel's device time and the FK20 call's device activity
-     from a torch.profiler trace.
+     (inverse FFT) -> da_using_fk20_multi. The launch counters of its
+     kernels must be > 0; the 128 proofs must equal the same call on the
+     plain path on the card and an exact host oracle ([q(s)]G for the
+     known secret);
+  5. the producer path at the same shape (a blob builder's flow,
+     examples/full_das_pipeline.py:49-78): 4096 evaluations ->
+     das_extend_interleaved -> 8192 values -> inverse FFT (top half zero)
+     -> commit_to_poly (a 4096-point MSM) -> fk20_multi_da_optimized.
+     All seven launch counters must be > 0; the extension must equal the
+     plain path's, the commitment the host oracle [p(s)]G, the proofs the
+     host oracle;
+  6. times on the card after warm-up: whole calls with CUDA events,
+     each kernel's device time, and the FK20 and commit calls' device
+     activity from torch.profiler traces.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -155,17 +163,26 @@ def plain_path():
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
-    from kzg_tpu_torch.ntt import fft_fr
+    from kzg_tpu_torch.ntt import das, fft_fr
 
-    def stage(spec, x, roots, log_half, stride):
+    def stage(spec, x, roots, log_half, stride, offset=0):
         return x.copy_(fk.fr_butterfly_stage_plain(spec, x, roots,
-                                                   log_half, stride))
+                                                   log_half, stride, offset))
+
+    def dif(spec, x, roots, log_half, stride):
+        return x.copy_(fk.fr_dif_stage_plain(spec, x, roots, log_half,
+                                             stride))
 
     swaps = [(fr, "mont_mul", fk.mont_mul_plain),
              (fp, "mont_mul", fk.mont_mul_plain),
              (fft_fr, "fr_butterfly_stage", stage),
              (fft_fr, "fr_scale", fk.fr_scale_plain),
+             (das, "fr_dif_stage", dif),
+             (das, "fr_butterfly_stage", stage),
+             (das, "fr_scale", fk.fr_scale_plain),
              (g1, "g1_scalar_mul", gk.g1_scalar_mul_plain),
+             (g1, "g1_add", gk.g1_add_plain),
+             (g1, "g1_double", gk.g1_double_plain),
              (fft_g1, "g1_glv_butterfly", gk.g1_glv_butterfly_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -175,6 +192,21 @@ def plain_path():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def symbol(mangled: str) -> str:
+    """The qualified name in an Itanium-mangled symbol, without template
+    or function arguments: enough to tell ptxas's functions apart."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    parts = []
+    while s[:1].isdigit():
+        k = len(s) - len(s.lstrip("0123456789"))
+        n = int(s[:k])
+        parts.append(s[k:k + n])
+        s = s[k + n:]
+    return "::".join(p for p in parts
+                     if not p.startswith(("_GLOBAL__N", "_INTERNAL"))) \
+        or mangled
 
 
 def check(ok: bool, what: str) -> None:
@@ -206,13 +238,15 @@ def main() -> int:
     from kzg_tpu_torch import build
     from kzg_tpu_torch.curve import g1
     from kzg_tpu_torch.curve import kernels as gk
-    from kzg_tpu_torch.curve.fft_g1 import fft_g1
+    from kzg_tpu_torch.curve.fft_g1 import fft_g1, reverse_bit_order_g1
+    from kzg_tpu_torch.curve.msm import horner_windows, window_sums
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
     from kzg_tpu_torch.fk20.multi import FK20MultiSettings
     from kzg_tpu_torch.kzg.setup import insecure_kzg_settings_device
     from kzg_tpu_torch.ntt.bitrev import brp_permute
+    from kzg_tpu_torch.ntt.das import das_extend_interleaved
     from kzg_tpu_torch.ntt.domain import FFTSettings
     from kzg_tpu_torch.ntt.fft_fr import fft
     from kzg_tpu_torch.utils import host_ec
@@ -227,9 +261,13 @@ def main() -> int:
     logs = build.build_all()
     log(f"build: {time.time() - t:.1f} s ({len(logs)} libraries compiled)")
     for name, text in logs.items():
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = symbol(line.split()[-1])
+            elif "registers" in line or "spill" in line:
+                info = line.replace("ptxas info    :", "").strip()
+                log(f"  {name}: {fn}: {info}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -303,6 +341,53 @@ def main() -> int:
         checks[f"g1_glv_butterfly_{int(inverse)}"] = max_abs_err(got, want)
     log("K4 g1_glv_butterfly: whole 128-point G1 FFT fwd+inv bit-exact")
 
+    # g1_add at the width of the MSM's first tree level (2048 x 64 lanes):
+    # random r-torsion points, and the edge lanes 0 P == Q under another
+    # Z, 1 Q == -P, 2-3 Q at infinity as (1, 1, 0) and all-zero words,
+    # 4-5 P at infinity likewise, 6 both at infinity
+    n5 = 1 << 17
+    P, Q = fp_pts(n5), fp_pts(n5)
+    for qc, pc, k in zip(Q, P, (25, 125, 5)):
+        qc[0] = fp.mul(pc[0], fp.from_int(k, dev))
+        qc[1] = pc[1]
+    Q.y[1] = fp.neg(P.y[1])
+    inf1 = g1.infinity((1,), dev)
+    for pc, qc, ic in zip(P, Q, inf1):
+        qc[2], qc[3], pc[4], pc[5], pc[6], qc[6] = ic[0], 0, ic[0], 0, ic[0], 0
+    edge_products = 8 + 7 + 8    # lane 0: 8 + the double's 7; lane 1: 8
+    add_products = (n5 - 7) * 16 + edge_products
+    got, want = gk.g1_add(P, Q), gk.g1_add_plain(P, Q)
+    check(same(got, want), "g1_add differs")
+    checks["g1_add"] = max_abs_err(got, want)
+    head = [g1.to_affine_ints(JacobianPoint(*(c[:10] for c in t)))
+            for t in (P, Q, got)]
+    check(head[2] == [host_ec.g1_add(a, b) for a, b in zip(*head[:2])],
+          "g1_add disagrees with the host oracle")
+    got, want = gk.g1_double(P), gk.g1_double_plain(P)
+    check(same(got, want), "g1_double differs")
+    checks["g1_double"] = max_abs_err(got, want)
+    check(g1.to_affine_ints(JacobianPoint(*(c[:10] for c in got)))
+          == [host_ec.g1_add(a, a) for a in head[0]],
+          "g1_double disagrees with the host oracle")
+    log(f"g1_add, g1_double: {n5} lanes bit-exact (incl. P == Q, P == -Q, "
+        "both infinity encodings)")
+
+    # fr_dif_stage: the extension's first and last down-sweep levels on
+    # the 8192-point domain, 4 rows of 4096 with values near r
+    near = [r - 1, r - 2, 0, 1]
+    xd = fr.from_int(random_fr_ints(rng, 4 * 4096 - 4, r) + near,
+                     dev).reshape(4, 4096, 8)
+    checks["fr_dif_stage"] = 0
+    for log_half, stride in ((11, 2), (0, 4096)):
+        got = fk.fr_dif_stage(fr.SPEC, xd.clone(), fs13.reverse_roots_of_unity,
+                              log_half, stride)
+        want = fk.fr_dif_stage_plain(fr.SPEC, xd, fs13.reverse_roots_of_unity,
+                                     log_half, stride)
+        check(same(got, want), f"fr_dif_stage log_half={log_half} differs")
+        checks["fr_dif_stage"] = max(checks["fr_dif_stage"],
+                                     max_abs_err(got, want))
+    log("fr_dif_stage: 4 x 4096 Fr, widest and narrowest levels bit-exact")
+
     # ---- 3. Fr FFT at 2^20 ----
     fs20 = FFTSettings(20, dev)
     vals = random_fr_ints(rng, 1 << 20, r)
@@ -323,11 +408,11 @@ def main() -> int:
     ks = insecure_kzg_settings_device(SECRET, n, fs13)
     torch.cuda.synchronize()
     crs_s = time.time() - t
-    crs_aff = g1.to_affine_ints(JacobianPoint(*(c[[0, 1, 4095]]
+    crs_aff = g1.to_affine_ints(JacobianPoint(*(c[[0, 1, n - 1]]
                                                 for c in ks.secret_g1)))
     gen = host_ec.g1_generator()
     check(crs_aff == [host_ec.g1_mul(gen, pow(SECRET, i, r))
-                      for i in (0, 1, 4095)], "device CRS is wrong")
+                      for i in (0, 1, n - 1)], "device CRS is wrong")
     t = time.time()
     fkm = FK20MultiSettings(ks, n2, l)
     torch.cuda.synchronize()
@@ -346,18 +431,21 @@ def main() -> int:
     gk.reset_launches()
     coeffs, proofs = blob_to_proofs(blob)
     torch.cuda.synchronize()
-    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
-    log(f"main path launches: {json.dumps(launches)}")
-    for name, cnt in launches.items():
-        check(cnt > 0, f"{name} was not launched on the main path")
+    fk20_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"proof path launches: {json.dumps(fk20_launches)}")
+    for name in ("mont_mul", "fr_scale", "fr_butterfly_stage",
+                 "g1_scalar_mul", "g1_glv_butterfly", "g1_add"):
+        check(fk20_launches[name] > 0,
+              f"{name} was not launched on the proof path")
     check(proofs.x.shape == (n2 // l, fp.N_WORDS),
           f"proofs have shape {tuple(proofs.x.shape)}")
 
     coeff_ints = [int(v) for v in fr.to_int(coeffs)]
     w13 = fs13.root_of_unity_int
-    for i in (0, 5, 4095):
-        check(eval_poly(coeff_ints, pow(w13, 2 * i, r), r)
-              == blob_ints[bitrev(i, 12)], "blob -> coefficients is wrong")
+    for i in (0, 5, n - 1):
+        check(eval_poly(coeff_ints, pow(w13, fs13.max_width // n * i, r), r)
+              == blob_ints[bitrev(i, n.bit_length() - 1)],
+              "blob -> coefficients is wrong")
     with plain_path():
         plain = fkm.da_using_fk20_multi(coeffs)
     got_aff = g1.to_affine_ints(proofs)
@@ -365,9 +453,44 @@ def main() -> int:
           "proofs differ from the plain path")
     check(got_aff == oracle_proofs(coeff_ints, n2, l, SECRET, r, host_ec),
           "proofs differ from the host oracle")
-    log("main path: 128 proofs equal the plain path and the host oracle")
+    log("proof path: 128 proofs equal the plain path and the host oracle")
 
-    # ---- 5. times ----
+    # ---- 5. the producer path at the PeerDAS shape ----
+    data = fr.from_int(random_fr_ints(rng, n, r), dev)
+    evens = brp_permute(data, axis=-2)
+
+    def producer(ev):
+        ext = das_extend_interleaved(fs13, ev)
+        cf = fft(fs13, ext, inverse=True)
+        return ext, cf, ks.commit_to_poly(cf[:n]), fkm.fk20_multi_da_optimized(cf)
+
+    fk.reset_launches()
+    gk.reset_launches()
+    ext, cf, commit, proofs2 = producer(evens)
+    torch.cuda.synchronize()
+    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"producer path launches: {json.dumps(launches)}")
+    for name, cnt in launches.items():
+        check(cnt > 0, f"{name} was not launched on the producer path")
+    check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
+          "the extension does not keep the evens")
+    with plain_path():
+        plain_ext = das_extend_interleaved(fs13, evens)
+    check(same(ext, plain_ext), "the extension differs from the plain path")
+    checks["das_extension"] = max_abs_err(ext, plain_ext)
+    cf_ints = [int(v) for v in fr.to_int(cf)]
+    check(all(v == 0 for v in cf_ints[n:]), "top half of coefficients != 0")
+    check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in commit)))
+          == [host_ec.g1_mul(gen, eval_poly(cf_ints[:n], SECRET % r, r))],
+          "the commitment differs from the host oracle")
+    check(g1.to_affine_ints(reverse_bit_order_g1(proofs2))
+          == oracle_proofs(cf_ints[:n], n2, l, SECRET, r, host_ec),
+          "producer proofs differ from the host oracle")
+    log("producer path: 8192-value extension equals the plain path, top "
+        "half of coefficients zero, commitment and 128 proofs equal the "
+        "host oracle")
+
+    # ---- 6. times ----
     def timed(fn, reps):
         return cuda_ms(fn, reps)
 
@@ -383,26 +506,48 @@ def main() -> int:
     path_ms = timed(lambda: blob_to_proofs(blob), 3)
     fft20_ms = timed(lambda: fft(fs20, x20), 3)
     log(f"[{card}] FK20 da_using_fk20_multi: {fk20_ms:.3f} ms = "
-        f"{128 / fk20_ms * 1e3:.1f} proofs/s; blob->proofs {path_ms:.3f} ms")
+        f"{n2 // l / fk20_ms * 1e3:.1f} proofs/s; blob->proofs "
+        f"{path_ms:.3f} ms")
     log(f"[{card}] Fr FFT 2^20: {fft20_ms:.3f} ms")
 
-    # where the FK20 call's time goes: device activity in one traced call
-    spans = device_events(lambda: fkm.da_using_fk20_multi(coeffs))
-    busy_ms = busy_us(spans) / 1e3
-    by_name = {}
-    for name, s, e in spans:
-        cnt, tot = by_name.get(name, (0, 0.0))
-        by_name[name] = (cnt + 1, tot + (e - s) / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    profile = {"device_ops": len(spans), "busy_ms": busy_ms,
-               "idle_share": max(0.0, 1 - busy_ms / fk20_ms),
-               "top": [{"name": k[:120], "count": c, "ms": t}
-                       for k, (c, t) in top[:12]]}
-    log(f"[{card}] FK20 trace: {len(spans)} device ops, busy "
-        f"{busy_ms:.3f} ms of {fk20_ms:.3f} ms "
-        f"(idle share {profile['idle_share']:.3f})")
-    for row in profile["top"][:8]:
-        log(f"    {row['ms']:10.3f} ms {row['count']:6d}x {row['name'][:90]}")
+    ext_ms = timed(lambda: das_extend_interleaved(fs13, evens), 5)
+    commit_ms = timed(lambda: ks.commit_to_poly(cf[:n]), 3)
+    wsums = window_sums(g1.ops_kernel, JacobianPoint(
+        *(c[:n] for c in ks.secret_g1)), cf[:n])
+    wsums_ms = timed(lambda: window_sums(g1.ops_kernel, JacobianPoint(
+        *(c[:n] for c in ks.secret_g1)), cf[:n]), 3)
+    horner_ms = timed(lambda: horner_windows(g1.ops_kernel, wsums), 3)
+    producer_ms = timed(lambda: producer(evens), 3)
+    log(f"[{card}] producer path (extend, inverse FFT, commit, FK20): "
+        f"{producer_ms:.3f} ms; das_extend_interleaved {ext_ms:.3f} ms; "
+        f"commit_to_poly {commit_ms:.3f} ms = window sums {wsums_ms:.3f} ms"
+        f" + Horner (315 one-lane launches) {horner_ms:.3f} ms")
+
+    def trace(what, fn, call_ms):
+        """Device activity of one traced call of fn."""
+        spans = device_events(fn)
+        busy_ms = busy_us(spans) / 1e3
+        by_name = {}
+        for name, s, e in spans:
+            cnt, tot = by_name.get(name, (0, 0.0))
+            by_name[name] = (cnt + 1, tot + (e - s) / 1e3)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+        prof = {"device_ops": len(spans), "busy_ms": busy_ms,
+                "call_ms": call_ms,
+                "idle_share": max(0.0, 1 - busy_ms / call_ms),
+                "top": [{"name": k[:120], "count": c, "ms": t}
+                        for k, (c, t) in top[:12]]}
+        log(f"[{card}] {what} trace: {len(spans)} device ops, busy "
+            f"{busy_ms:.3f} ms of {call_ms:.3f} ms "
+            f"(idle share {prof['idle_share']:.3f})")
+        for row in prof["top"][:8]:
+            log(f"    {row['ms']:10.3f} ms {row['count']:6d}x "
+                f"{row['name'][:90]}")
+        return prof
+
+    profile = trace("FK20", lambda: fkm.da_using_fk20_multi(coeffs), fk20_ms)
+    commit_profile = trace("commit", lambda: ks.commit_to_poly(cf[:n]),
+                           commit_ms)
 
     kernels = []
 
@@ -425,19 +570,21 @@ def main() -> int:
                         "reps": reps, "call_ms": [call_ms, call2_ms]}
         log(f"[{card}] {name}: {ms:.4f} ms on the device ({caught} of "
             f"{reps} launches traced), {call_ms:.4f} then {call2_ms:.4f} ms "
-            f"a call (plain {pms:.3f} ms, bound {b:.5f} ms by {by})")
+            f"a call (plain {pms:.3f} ms, bound {b:.3g} ms by {by})")
 
     timing = {}
 
-    FR, FP = fr.SPEC, fp.SPEC
-    # K1 at the widest Fp tier of the tree sum: 5 x 32 x 128 lanes
-    a = FP.encode(random_fr_ints(rng, 5 * 32 * 128, FP.modulus), dev)
-    b = FP.encode(random_fr_ints(rng, 5 * 32 * 128, FP.modulus), dev)
+    FR = fr.SPEC
+    # K1 at its widest call on the paths: fr.from_mont of the Toeplitz
+    # scalars (64 x 128 Fr lanes) against the broadcast integer 1
+    a = fr.from_int(random_fr_ints(rng, 64 * 128, r), dev)
+    one = FR.words([1], dev)[0]
     nl = a.shape[0]
     record("mont_mul", "mont_mul_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
            "kzg_tpu/field/pallas_kernels.py:324",
-           lambda: fk.mont_mul(FP, a, b), lambda: fk.mont_mul_plain(FP, a, b),
-           3 * 48 * nl, nl * (2 * 12 * 12 + 12),
+           lambda: fk.mont_mul(FR, a, one),
+           lambda: fk.mont_mul_plain(FR, a, one),
+           2 * 32 * nl + 32, nl * (2 * 8 * 8 + 8),
            max(checks["mont_mul_Fr"], checks["mont_mul_Fp"]))
     # fr_scale at the blob's inverse FFT exit: 4096 lanes
     c13 = fr.from_int(pow(n, -1, r), dev)
@@ -464,42 +611,75 @@ def main() -> int:
     # K3 at the Toeplitz pointwise product: 64 x 128 lanes
     pts = fkm.x_ext_fft_files
     pts = JacobianPoint(*(c.reshape(-1, 12).contiguous() for c in pts))
+    n_pts = pts.x.shape[0]
     dig = fr.scalar_windows_signed(
-        fr.from_int(random_fr_ints(rng, 8192, r), dev))
+        fr.from_int(random_fr_ints(rng, n_pts, r), dev))
     nnz = int((dig != 0).sum())
-    muls3 = 8192 * (3 + 7 * 12 + 64 * 4 * 8 + 3) + 12 * nnz
+    muls3 = n_pts * (3 + 7 * 12 + 64 * 4 * 8 + 3) + 12 * nnz
     record("g1_scalar_mul", "scalar_mul_kernel",
            "kzg_tpu_torch/csrc/g1_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:473",
            lambda: gk.g1_scalar_mul(pts, dig),
            lambda: gk.g1_scalar_mul_plain(pts, dig),
-           8192 * (6 * 48 + 64 * 4), muls3 * 300, checks["g1_scalar_mul"],
+           n_pts * (6 * 48 + 64 * 4), muls3 * 300, checks["g1_scalar_mul"],
            reps=3)
     # K4 at one stage of the 128-point proof FFT: 64 lanes, last stage
     from kzg_tpu_torch.curve.fft_g1 import _stage_digits
-    d1n, d2n = _stage_digits(13, 128, False, None)[0][-1]
+    k2 = n2 // l
+    d1n, d2n = _stage_digits(13, k2, False, None)[0][-1]
     d1 = torch.from_numpy(d1n).to(dev)
     d2 = torch.from_numpy(d2n).to(dev)
-    A = JacobianPoint(*(c[:64].contiguous() for c in pts))
-    B = JacobianPoint(*(c[64:128].contiguous() for c in pts))
+    A = JacobianPoint(*(c[:k2 // 2].contiguous() for c in pts))
+    B = JacobianPoint(*(c[k2 // 2:k2].contiguous() for c in pts))
     nz1, nz2 = int(np.count_nonzero(d1n)), int(np.count_nonzero(d2n))
-    muls4 = 64 * (3 + 7 * 12 + 33 * 4 * 8 + 3 + 2 * 12 + 2 * 3) \
+    muls4 = k2 // 2 * (3 + 7 * 12 + 33 * 4 * 8 + 3 + 2 * 12 + 2 * 3) \
         + 12 * nz1 + 13 * nz2
     record("g1_glv_butterfly", "glv_butterfly_kernel",
            "kzg_tpu_torch/csrc/g1_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:526",
            lambda: gk.g1_glv_butterfly(A, B, d1, d2),
            lambda: gk.g1_glv_butterfly_plain(A, B, d1, d2),
-           64 * (12 * 48 + 2 * 33 * 4), muls4 * 300,
+           k2 // 2 * (12 * 48 + 2 * 33 * 4), muls4 * 300,
            max(checks["g1_glv_butterfly_0"], checks["g1_glv_butterfly_1"]))
+
+    # g1_add at the MSM's first tree level, 2^17 lanes (the edge lanes
+    # above; a lane's products are counted by the branch it takes)
+    record("g1_add", "g1_add_kernel",
+           "kzg_tpu_torch/csrc/g1_point_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:373",
+           lambda: gk.g1_add(P, Q), lambda: gk.g1_add_plain(P, Q),
+           n5 * 9 * 48, add_products * 300, checks["g1_add"])
+    # g1_double at Horner's width: one lane per commitment
+    P1 = JacobianPoint(*(c[7:8] for c in P))
+    record("g1_double", "g1_double_kernel",
+           "kzg_tpu_torch/csrc/g1_point_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:394",
+           lambda: gk.g1_double(P1), lambda: gk.g1_double_plain(P1),
+           6 * 48, 7 * 300, checks["g1_double"], reps=20, plain_reps=5)
+    # fr_dif_stage at the extension's first down-sweep level: 2048
+    # butterflies over one row of 4096
+    x1 = xd[:1].clone()
+    record("fr_dif_stage", "dif_stage_kernel",
+           "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:567",
+           lambda: fk.fr_dif_stage(FR, x1, fs13.reverse_roots_of_unity, 11,
+                                   2),
+           lambda: fk.fr_dif_stage_plain(FR, x1, fs13.reverse_roots_of_unity,
+                                         11, 2),
+           2048 * (4 * 32 + 32), 2048 * (2 * 8 * 8 + 8),
+           max(checks["fr_dif_stage"], checks["das_extension"]))
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
-              "proofs_per_s": 128 / fk20_ms * 1e3,
+              "proofs_per_s": n2 // l / fk20_ms * 1e3,
               "blob_to_proofs_ms": path_ms,
               "fft_2_20_ms": fft20_ms, "crs_s": crs_s, "setup_s": setup_s,
-              "launches": launches, "kernels": kernels,
-              "kernel_timing": timing, "fk20_profile": profile}
+              "producer_ms": producer_ms, "das_extend_ms": ext_ms,
+              "commit_ms": commit_ms, "window_sums_ms": wsums_ms,
+              "horner_ms": horner_ms, "launches": launches,
+              "fk20_launches": fk20_launches, "kernels": kernels,
+              "kernel_timing": timing, "fk20_profile": profile,
+              "commit_profile": commit_profile}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

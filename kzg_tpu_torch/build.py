@@ -21,7 +21,7 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
-SOURCES = ("fr_kernels", "g1_kernels")
+SOURCES = ("fr_kernels", "g1_kernels", "g1_point_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,11 +31,16 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fr_kernels": {
         "kzg_mont_mul": (_I, _P, _P, _P, _I, _I, _P),
-        "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _P),
+        "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
+        "kzg_fr_dif_stage": (_P, _P, _I, _I, _I, _I, _P),
     },
     "g1_kernels": {
         "kzg_g1_scalar_mul": (_P,) * 7 + (_I, _I, _P),
         "kzg_g1_glv_butterfly": (_P,) * 14 + (_I, _I, _P),
+    },
+    "g1_point_kernels": {
+        "kzg_g1_add": (_P,) * 9 + (_I, _P),
+        "kzg_g1_double": (_P,) * 6 + (_I, _P),
     },
 }
 

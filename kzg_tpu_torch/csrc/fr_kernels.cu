@@ -1,6 +1,6 @@
-// Field kernels K1 (mont_mul) and K2 (fr_butterfly_stage), built by nvcc
-// for sm_90a into a shared library with a plain C interface (loaded by
-// kzg_tpu_torch/build.py through ctypes).
+// Field kernels K1 (mont_mul), K2 (fr_butterfly_stage) and fr_dif_stage,
+// built by nvcc for sm_90a into a shared library with a plain C interface
+// (loaded by kzg_tpu_torch/build.py through ctypes).
 //
 // K1 replaces kzg_tpu/field/pallas_kernels.py::_mul_fn (mont_mul_pallas)
 // and, as the fr_scale wrapper, ::_canon_scale_fn (canon_scale): the
@@ -8,6 +8,13 @@
 // to a multiply by the broadcast constant 2^-k.
 // K2 replaces ::_butterfly_lazy_fn (butterfly_lazy): one radix-2 DIT
 // stage, hi = a + b*tw, lo = a - b*tw, here in place on canonical words.
+// fr_dif_stage replaces ::_butterfly_lazy_dif_fn (butterfly_lazy_dif): one
+// DIF stage of the DAS extension's down-sweep, hi = a + b, lo = (a - b)*tw.
+// The Pallas kernel works on lazy 17-limb values in the R_ext domain, so
+// it subtracts with a 256m offset and re-reduces the unmultiplied hi chain
+// every few levels (reduce_hi). Here every value is canonical after every
+// operation, so none of that is needed: the stage is one add, one sub and
+// one product per butterfly.
 //
 // Bound on this card: a canonical product moves 3 x 4N bytes (a, b, out)
 // and does 2N^2 + N 32x32->64 multiply-adds (300 for Fp, 136 for Fr).
@@ -40,33 +47,68 @@ __global__ void __launch_bounds__(kThreads)
   kzg::store<N>(out + (size_t)i * N, x);
 }
 
-// One DIT stage of width m = 2^(log_half+1) over `batch` rows of 2^log_n
-// Fr values; thread t owns butterfly (row, group, j). The twiddle of
-// position j is roots[j * stride] of the domain table.
-__global__ void __launch_bounds__(kThreads)
-    butterfly_stage_kernel(int32_t* __restrict__ x,
-                           const int32_t* __restrict__ roots, int log_n,
-                           int log_half, int stride, int total) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
+// Thread t of a stage of width m = 2^(log_half+1) over `batch` rows of
+// 2^log_n Fr values owns butterfly (row, group, j): positions ia and
+// ib = ia + m/2, with twiddle index j.
+struct Butterfly {
+  size_t ia, ib;
+  int j;
+};
+
+__device__ __forceinline__ Butterfly butterfly_of(int t, int log_n,
+                                                  int log_half) {
   const int row = t >> (log_n - 1);
   const int r = t & ((1 << (log_n - 1)) - 1);
   const int g = r >> log_half;
   const int j = r & ((1 << log_half) - 1);
   const size_t ia = ((size_t)row << log_n) + ((size_t)g << (log_half + 1)) + j;
-  const size_t ib = ia + ((size_t)1 << log_half);
+  return {ia, ia + ((size_t)1 << log_half), j};
+}
+
+// One DIT stage: hi = a + b*tw, lo = a - b*tw with tw the table entry
+// roots[offset + j * stride].
+__global__ void __launch_bounds__(kThreads)
+    butterfly_stage_kernel(int32_t* __restrict__ x,
+                           const int32_t* __restrict__ roots, int log_n,
+                           int log_half, int stride, int offset, int total) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const Butterfly f = butterfly_of(t, log_n, log_half);
   uint32_t a[8], b[8], hi[8], lo[8];
-  kzg::load<8>(a, x + ia * 8);
-  kzg::load<8>(b, x + ib * 8);
-  if (log_half > 0) {  // stage 1's twiddle is 1: no multiply
+  kzg::load<8>(a, x + f.ia * 8);
+  kzg::load<8>(b, x + f.ib * 8);
+  // an FFT's first stage (log_half 0, offset 0) has twiddle roots[0] = 1:
+  // no multiply. The DAS up-sweep's last level is also 2 wide, but its
+  // twiddle roots[offset] is not 1, so a nonzero offset always multiplies.
+  if (log_half > 0 || offset != 0) {
     uint32_t w[8];
-    kzg::load<8>(w, roots + (size_t)j * stride * 8);
+    kzg::load<8>(w, roots + ((size_t)offset + (size_t)f.j * stride) * 8);
     kzg::mul<8>(b, b, w);
   }
   kzg::add<8>(hi, a, b);
   kzg::sub<8>(lo, a, b);
-  kzg::store<8>(x + ia * 8, hi);
-  kzg::store<8>(x + ib * 8, lo);
+  kzg::store<8>(x + f.ia * 8, hi);
+  kzg::store<8>(x + f.ib * 8, lo);
+}
+
+// One DIF stage: hi = a + b, lo = (a - b) * roots[j * stride]; the
+// twiddle always multiplies.
+__global__ void __launch_bounds__(kThreads)
+    dif_stage_kernel(int32_t* __restrict__ x,
+                     const int32_t* __restrict__ roots, int log_n,
+                     int log_half, int stride, int total) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const Butterfly f = butterfly_of(t, log_n, log_half);
+  uint32_t a[8], b[8], w[8], hi[8], lo[8];
+  kzg::load<8>(a, x + f.ia * 8);
+  kzg::load<8>(b, x + f.ib * 8);
+  kzg::load<8>(w, roots + (size_t)f.j * stride * 8);
+  kzg::add<8>(hi, a, b);
+  kzg::sub<8>(lo, a, b);
+  kzg::mul<8>(lo, lo, w);
+  kzg::store<8>(x + f.ia * 8, hi);
+  kzg::store<8>(x + f.ib * 8, lo);
 }
 
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
@@ -89,10 +131,19 @@ extern "C" int kzg_mont_mul(int n_words, void* out, const void* a,
 }
 
 extern "C" int kzg_fr_butterfly_stage(void* x, const void* roots, int log_n,
-                                      int log_half, int stride, int total,
-                                      void* stream) {
+                                      int log_half, int stride, int offset,
+                                      int total, void* stream) {
   butterfly_stage_kernel<<<blocks(total), kThreads, 0,
                            (cudaStream_t)stream>>>(
+      (int32_t*)x, (const int32_t*)roots, log_n, log_half, stride, offset,
+      total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_fr_dif_stage(void* x, const void* roots, int log_n,
+                                int log_half, int stride, int total,
+                                void* stream) {
+  dif_stage_kernel<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
       (int32_t*)x, (const int32_t*)roots, log_n, log_half, stride, total);
   return (int)cudaGetLastError();
 }

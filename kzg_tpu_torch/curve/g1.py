@@ -2,6 +2,8 @@
 
 `mul` is kernel K3 (with its scalar recoding on K1); add/sub/double are
 the plain masked-select Jacobian formulas with their products on K1.
+`ops_kernel` is the same curve interface with add and double on the point
+kernels, one launch each, for the MSM and FK20's tree sum.
 """
 
 from __future__ import annotations
@@ -11,8 +13,8 @@ import torch
 
 from ..field import fp, fr
 from ..field.constants import G1_GENERATOR_X, G1_GENERATOR_Y
-from .kernels import g1_scalar_mul
-from .weierstrass import CurveOps, JacobianPoint
+from .kernels import g1_add, g1_double, g1_scalar_mul
+from .weierstrass import CurveOps, JacobianPoint, map_points
 
 ops = CurveOps(fp)
 
@@ -23,6 +25,39 @@ neg = ops.neg
 select = ops.select
 is_infinity = ops.is_infinity
 to_affine = ops.to_affine
+
+
+class KernelG1Ops:
+    """CurveOps-shaped facade whose add and double are the point kernels
+    (kzg_tpu/curve/pallas_g1.py::PallasG1Ops): one launch per point op
+    over the whole batch. Its infinity is all-zero words, as the kernels
+    make it for P + (-P)."""
+
+    F = fp
+
+    def infinity_like(self, p: JacobianPoint) -> JacobianPoint:
+        return JacobianPoint(*(torch.zeros_like(p.z) for _ in range(3)))
+
+    def is_infinity(self, p: JacobianPoint):
+        return fp.is_zero(p.z)
+
+    def add(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        return g1_add(p, q)
+
+    def double(self, p: JacobianPoint) -> JacobianPoint:
+        return g1_double(p)
+
+    def neg(self, p: JacobianPoint) -> JacobianPoint:
+        return JacobianPoint(p.x, fp.neg(p.y), p.z)
+
+    def sub(self, p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+        return g1_add(p, self.neg(q))
+
+    def select(self, mask, a: JacobianPoint, b: JacobianPoint):
+        return map_points(lambda u, v: fp.select(mask, u, v), a, b)
+
+
+ops_kernel = KernelG1Ops()
 
 
 def _const_point(x: int, y: int, z: int, shape, device) -> JacobianPoint:

@@ -1,9 +1,10 @@
 """G1 ladder kernels K3 (`g1_scalar_mul`) and K4 (`g1_glv_butterfly`),
-with their plain PyTorch versions.
+and the point kernels `g1_add` and `g1_double`, with their plain PyTorch
+versions.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel (csrc/g1_kernels.cu) or raises. Each launch
-adds one to the wrapper's entry in `LAUNCHES`.
+tensors it launches the kernel (csrc/g1_kernels.cu, csrc/g1_point_kernels.cu)
+or raises. Each launch adds one to the wrapper's entry in `LAUNCHES`.
 
 Both ladders run the complete Renes-Costello-Batina projective formulas
 (a = 0, b3 = 12) in the operation order of kzg_tpu/curve/pallas_g1.py,
@@ -11,6 +12,12 @@ with Jacobian points in and out. Infinity enters as any Z == 0 and leaves
 as all-zero words. The plain versions run the same formulas on the
 redundant int64 engine (field/limbs.py) and reduce once at the end, so
 their output words equal the kernels'.
+
+`g1_add` and `g1_double` are the complete Jacobian formulas of
+kzg_tpu/curve/pallas_g1.py (add-2007-bl with its selects, dbl-2009-l), on
+Jacobian words in and out. Their plain versions also run on the redundant
+engine and canonicalise only the outputs and the two values the selects
+test (h and r).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from ..field.kernels import check_words, stream_of
 from .glv import GLV_BETA
 from .weierstrass import JacobianPoint
 
-LAUNCHES = {"g1_scalar_mul": 0, "g1_glv_butterfly": 0}
+LAUNCHES = {"g1_scalar_mul": 0, "g1_glv_butterfly": 0, "g1_add": 0,
+            "g1_double": 0}
 
 NP = fp.N_WORDS
 
@@ -170,6 +178,70 @@ def g1_glv_butterfly_plain(a: JacobianPoint, b: JacobianPoint, d1, d2):
     return _shaped(lo, shape), _shaped(hi, shape)
 
 
+# ---- plain versions of the point kernels: Jacobian formulas, lazy ----
+def _jac_double_lazy(c, x, y, z):
+    """dbl-2009-l (a = 0) on redundant limbs."""
+    M = functools.partial(limbs.mul_lazy, c)
+    a, b = M(x, x), M(y, y)
+    cc = M(b, b)
+    t = x + b
+    d = 2 * (M(t, t) - (a + cc))
+    e = 3 * a
+    x3 = M(e, e) - 2 * d
+    return x3, M(e, d - x3) - 8 * cc, 2 * M(y, z)
+
+
+def _words(c, v):
+    return limbs.limbs_to_words(limbs.canon_wide(c, v))
+
+
+def _broadcast(*ps: JacobianPoint):
+    shape = torch.broadcast_shapes(*(p.x.shape for p in ps))
+    return [JacobianPoint(*(t.expand(shape) for t in p)) for p in ps]
+
+
+def g1_double_plain(p: JacobianPoint) -> JacobianPoint:
+    c = limbs.consts(fp.SPEC, p.x.device)
+    out = _jac_double_lazy(c, *(limbs.words_to_limbs(t) for t in p))
+    return JacobianPoint(*(_words(c, v) for v in out))
+
+
+def g1_add_plain(p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    """add-2007-bl, then point_add_tile's selects in its order: the double
+    where P == Q, all-zero words where P == -Q, P where Q is at infinity,
+    Q where P is."""
+    p, q = _broadcast(p, q)
+    c = limbs.consts(fp.SPEC, p.x.device)
+    M = functools.partial(limbs.mul_lazy, c)
+    x1, y1, z1 = (limbs.words_to_limbs(t) for t in p)
+    x2, y2, z2 = (limbs.words_to_limbs(t) for t in q)
+    z1z1, z2z2 = M(z1, z1), M(z2, z2)
+    u1, u2 = M(x1, z2z2), M(x2, z1z1)
+    s1, s2 = M(M(y1, z2), z2z2), M(M(y2, z1), z1z1)
+    h, rr = u2 - u1, s2 - s1
+    i = M(2 * h, 2 * h)
+    j, v, rr2 = M(h, i), M(u1, i), 2 * rr
+    x3 = M(rr2, rr2) - (j + 2 * v)
+    y3 = M(rr2, v - x3) - 2 * M(s1, j)
+    z3 = M(M(z1 + z2, z1 + z2) - (z1z1 + z2z2), h)
+    res = JacobianPoint(*(_words(c, t) for t in (x3, y3, z3)))
+
+    same_x = limbs.is_zero(limbs.canon_wide(c, h))
+    same_y = limbs.is_zero(limbs.canon_wide(c, rr))
+    p_inf, q_inf = fp.is_zero(p.z), fp.is_zero(q.z)
+    both = ~p_inf & ~q_inf
+    zero = torch.zeros_like(res.x)
+    dbl = same_x & same_y & both
+    selects = [(same_x & ~same_y & both, JacobianPoint(zero, zero, zero)),
+               (q_inf, p), (p_inf, q)]
+    if bool(dbl.any()):     # the double, only if some lane takes it
+        selects.insert(0, (dbl, g1_double_plain(p)))
+    for mask, other in selects:
+        res = JacobianPoint(*(fp.select(mask, a, b)
+                              for a, b in zip(other, res)))
+    return res
+
+
 # ---- kernel wrappers ----
 def _check_points(what: str, n: int, *ps: JacobianPoint) -> None:
     for p in ps:
@@ -232,3 +304,40 @@ def g1_glv_butterfly(a: JacobianPoint, b: JacobianPoint, d1, d2):
             d1.data_ptr(), d2.data_ptr(), d1.shape[-1], n, stream_of(a.x)),
             "g1_glv_butterfly")
     return lo, hi
+
+
+def g1_add(p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:
+    """Complete Jacobian add per lane, batch shapes broadcast (replaces
+    kzg_tpu/curve/pallas_g1.py::_add_fn). P == -Q gives all-zero words."""
+    if p.x.device.type == "cpu":
+        return g1_add_plain(p, q)
+    p, q = (JacobianPoint(*(t.contiguous() for t in pt))
+            for pt in _broadcast(p, q))
+    n = p.x.numel() // NP
+    _check_points("g1_add", n, p, q)
+    out = JacobianPoint(*(torch.empty_like(c) for c in p))
+    if n:
+        lib = build.library("g1_point_kernels")
+        LAUNCHES["g1_add"] += 1
+        build.check(lib.kzg_g1_add(
+            *(c.data_ptr() for c in out), *(c.data_ptr() for c in p),
+            *(c.data_ptr() for c in q), n, stream_of(p.x)), "g1_add")
+    return out
+
+
+def g1_double(p: JacobianPoint) -> JacobianPoint:
+    """Jacobian double per lane, dbl-2009-l (replaces
+    kzg_tpu/curve/pallas_g1.py::_double_fn). Infinity stays at Z = 0."""
+    if p.x.device.type == "cpu":
+        return g1_double_plain(p)
+    p = JacobianPoint(*(t.contiguous() for t in p))
+    n = p.x.numel() // NP
+    _check_points("g1_double", n, p)
+    out = JacobianPoint(*(torch.empty_like(c) for c in p))
+    if n:
+        lib = build.library("g1_point_kernels")
+        LAUNCHES["g1_double"] += 1
+        build.check(lib.kzg_g1_double(
+            *(c.data_ptr() for c in out), *(c.data_ptr() for c in p), n,
+            stream_of(p.x)), "g1_double")
+    return out

@@ -1,5 +1,6 @@
-"""Field kernels K1 (`mont_mul`, and its `fr_scale` exit form) and K2
-(`fr_butterfly_stage`), with their plain PyTorch versions.
+"""Field kernels K1 (`mont_mul`, and its `fr_scale` exit form), K2
+(`fr_butterfly_stage`) and `fr_dif_stage`, with their plain PyTorch
+versions.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (csrc/fr_kernels.cu) or raises. Each
@@ -14,7 +15,8 @@ from .. import build
 from . import limbs
 from .limbs import FieldSpec
 
-LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0}
+LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
+            "fr_dif_stage": 0}
 
 FR_WORDS = 8
 
@@ -94,48 +96,100 @@ def fr_scale(spec: FieldSpec, x, c) -> torch.Tensor:
     return _launch_mont_mul(spec, x, c, "fr_scale")
 
 
-def fr_butterfly_stage_plain(spec: FieldSpec, x, roots, log_half: int,
-                             stride: int) -> torch.Tensor:
-    """One DIT stage over x (batch, n, 8): within each group of
-    m = 2^(log_half+1), position j pairs with j + m/2 and twiddle
-    roots[j * stride]; hi = a + b*tw, lo = a - b*tw. Returns a new
-    tensor."""
+def _halves(x, log_half: int):
+    """(batch, n, 8) -> the a and b halves of every group of width
+    m = 2^(log_half+1), each (batch, n/m, m/2, 8)."""
     batch, n, N = x.shape
     half = 1 << log_half
     xs = x.reshape(batch, n // (2 * half), 2, half, N)
-    a, b = xs[:, :, 0], xs[:, :, 1]
-    if log_half > 0:
-        tw = roots[: half * stride : stride]
+    return xs[:, :, 0], xs[:, :, 1]
+
+
+def _merged(hi, lo, shape):
+    return torch.stack((hi, lo), dim=2).reshape(shape)
+
+
+def fr_butterfly_stage_plain(spec: FieldSpec, x, roots, log_half: int,
+                             stride: int, offset: int = 0) -> torch.Tensor:
+    """One DIT stage over x (batch, n, 8): within each group of
+    m = 2^(log_half+1), position j pairs with j + m/2 and twiddle
+    roots[offset + j * stride]; hi = a + b*tw, lo = a - b*tw. Returns a
+    new tensor."""
+    a, b = _halves(x, log_half)
+    if log_half > 0 or offset:
+        half = 1 << log_half
+        tw = roots[offset: offset + half * stride: stride]
         b = limbs.mont_mul_plain(spec, b, tw.expand(b.shape))
-    hi = limbs.add(spec, a, b)
-    lo = limbs.sub(spec, a, b)
-    return torch.stack((hi, lo), dim=2).reshape(batch, n, N)
+    return _merged(limbs.add(spec, a, b), limbs.sub(spec, a, b), x.shape)
+
+
+def _check_stage(what: str, x, roots, log_half: int, last_index: int):
+    """Validate a stage's operands; -> log2 n."""
+    check_words(x, FR_WORDS, what)
+    check_words(roots, FR_WORDS, what)
+    if x.dim() != 3 or roots.device != x.device:
+        raise ValueError(f"{what}: x must be (batch, n, 8) and roots on "
+                         "its device")
+    n = x.shape[1]
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n or not 0 <= log_half < log_n:
+        raise ValueError(f"{what}: bad width or stage")
+    if not 0 <= last_index < roots.shape[0]:
+        raise ValueError(f"{what}: twiddle index out of range")
+    return log_n
 
 
 def fr_butterfly_stage(spec: FieldSpec, x, roots, log_half: int,
-                       stride: int) -> torch.Tensor:
+                       stride: int, offset: int = 0) -> torch.Tensor:
     """K2: one radix-2 DIT stage of canonical Fr words, in place on x
     (batch, n, 8), which is returned (replaces
-    kzg_tpu/field/pallas_kernels.py::_butterfly_lazy_fn)."""
+    kzg_tpu/field/pallas_kernels.py::_butterfly_lazy_fn). The twiddle of
+    position j is roots[offset + j * stride]; a stage 2 wide with offset
+    0 has twiddle roots[0] = 1 and skips the multiply."""
     if x.device.type == "cpu":
-        x.copy_(fr_butterfly_stage_plain(spec, x, roots, log_half, stride))
+        x.copy_(fr_butterfly_stage_plain(spec, x, roots, log_half, stride,
+                                         offset))
         return x
-    check_words(x, FR_WORDS, "fr_butterfly_stage")
-    check_words(roots, FR_WORDS, "fr_butterfly_stage")
-    if x.dim() != 3 or roots.device != x.device:
-        raise ValueError("fr_butterfly_stage: x must be (batch, n, 8) and "
-                         "roots on its device")
-    batch, n, _ = x.shape
-    log_n = n.bit_length() - 1
-    if n != 1 << log_n or not 0 <= log_half < log_n:
-        raise ValueError("fr_butterfly_stage: bad width or stage")
-    if ((1 << log_half) - 1) * stride >= roots.shape[0]:
-        raise ValueError("fr_butterfly_stage: twiddle index out of range")
-    total = batch * n // 2
+    log_n = _check_stage("fr_butterfly_stage", x, roots, log_half,
+                         offset + ((1 << log_half) - 1) * stride)
+    total = x.shape[0] * x.shape[1] // 2
     if total:
         lib = build.library("fr_kernels")
         LAUNCHES["fr_butterfly_stage"] += 1
         build.check(lib.kzg_fr_butterfly_stage(
+            x.data_ptr(), roots.data_ptr(), log_n, log_half, stride, offset,
+            total, stream_of(x)), "fr_butterfly_stage")
+    return x
+
+
+def fr_dif_stage_plain(spec: FieldSpec, x, roots, log_half: int,
+                       stride: int) -> torch.Tensor:
+    """One DIF stage over x (batch, n, 8): within each group of
+    m = 2^(log_half+1), position j pairs with j + m/2;
+    hi = a + b, lo = (a - b) * roots[j * stride]. Returns a new tensor."""
+    a, b = _halves(x, log_half)
+    tw = roots[: (1 << log_half) * stride: stride]
+    lo = limbs.mont_mul_plain(spec, limbs.sub(spec, a, b),
+                              tw.expand(a.shape))
+    return _merged(limbs.add(spec, a, b), lo, x.shape)
+
+
+def fr_dif_stage(spec: FieldSpec, x, roots, log_half: int,
+                 stride: int) -> torch.Tensor:
+    """One DIF stage of canonical Fr words, in place on x (batch, n, 8),
+    which is returned (replaces
+    kzg_tpu/field/pallas_kernels.py::_butterfly_lazy_dif_fn): the DAS
+    extension's down-sweep butterfly hi = a + b, lo = (a - b) * tw."""
+    if x.device.type == "cpu":
+        x.copy_(fr_dif_stage_plain(spec, x, roots, log_half, stride))
+        return x
+    log_n = _check_stage("fr_dif_stage", x, roots, log_half,
+                         ((1 << log_half) - 1) * stride)
+    total = x.shape[0] * x.shape[1] // 2
+    if total:
+        lib = build.library("fr_kernels")
+        LAUNCHES["fr_dif_stage"] += 1
+        build.check(lib.kzg_fr_dif_stage(
             x.data_ptr(), roots.data_ptr(), log_n, log_half, stride, total,
-            stream_of(x)), "fr_butterfly_stage")
+            stream_of(x)), "fr_dif_stage")
     return x

@@ -190,14 +190,20 @@ def mul_lazy(c: _Consts, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def normalize(v: torch.Tensor):
-    """Exact sequential carry: -> (limbs in [0, 2^16), signed top carry)."""
+    """Exact sequential carry: -> (limbs in [0, 2^16), signed top carry).
+    The carry runs over pairs of limbs as 32-bit digits, half as many
+    sequential steps; limbs below 2^40 in magnitude keep every pair below
+    2^57. The limb count must be even."""
+    w = v[..., 0::2] + (v[..., 1::2] << LIMB_BITS)
     out = []
-    carry = torch.zeros_like(v[..., 0])
-    for k in range(v.shape[-1]):
-        x = v[..., k] + carry
-        out.append(x & LIMB_MASK)
-        carry = x >> LIMB_BITS
-    return torch.stack(out, dim=-1), carry
+    carry = torch.zeros_like(w[..., 0])
+    for k in range(w.shape[-1]):
+        x = w[..., k] + carry
+        out.append(x & 0xFFFFFFFF)
+        carry = x >> 32
+    n = torch.stack(out, dim=-1)
+    return torch.stack((n & LIMB_MASK, n >> LIMB_BITS), dim=-1).flatten(-2), \
+        carry
 
 
 def canon(c: _Consts, v: torch.Tensor) -> torch.Tensor:
@@ -206,6 +212,14 @@ def canon(c: _Consts, v: torch.Tensor) -> torch.Tensor:
     n, _ = normalize(n + (t < 0).unsqueeze(-1) * c.mod)   # now in [0, 2m)
     d, borrow = normalize(n - c.mod)
     return torch.where((borrow < 0).unsqueeze(-1), n, d)
+
+
+def canon_wide(c: _Consts, v: torch.Tensor) -> torch.Tensor:
+    """Redundant limbs with a value a few times m either side of 0 ->
+    canonical limbs < m: a float64 quotient estimate k = floor(v/m), off
+    by at most one, takes k*m off (as `mul_lazy` does) before `canon`."""
+    k = torch.floor((v.to(torch.float64) * c.w_mod).sum(-1)).to(torch.int64)
+    return canon(c, v - k.unsqueeze(-1) * c.mod)
 
 
 # ---- plain canonical ops on words (the engine behind fr/fp) ----

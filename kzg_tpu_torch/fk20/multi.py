@@ -4,8 +4,8 @@ in O(n log n) (reference: fk20_multi.go:25-133, kzg.go:66-116).
 The polynomial splits into l strided sub-polynomials; each contributes a
 Toeplitz product against its own strided CRS slice, and the l products
 sum into one hExtFFT. All l are batched: one Fr FFT launch per stage, one
-K3 launch for the pointwise products, a log2(l) tree sum, then the G1
-FFTs on K4. The per-offset part-1 tables are also built as one batch.
+K3 launch for the pointwise products, a log2(l) tree sum (one `g1_add`
+launch per level), then the G1 FFTs on K4. The per-offset part-1 tables are also built as one batch.
 """
 
 from __future__ import annotations
@@ -88,7 +88,8 @@ class FK20MultiSettings:
         tcs = torch.stack([toeplitz_coeffs_step_strided(reduced, i, l)
                            for i in range(l)])              # (l, 2k, 8)
         h_ext_fft = tree_reduce(
-            g1.ops, toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_files))
+            g1.ops_kernel,
+            toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_files))
         return toeplitz_part3(self.ks.fs, h_ext_fft)
 
     def fk20_multi(self, poly) -> JacobianPoint:

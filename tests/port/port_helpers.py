@@ -163,6 +163,65 @@ def tree_reduce_case():
     return aff, JacobianPoint(*(c.reshape(3, 2, 12) for c in pts))
 
 
+def jacobian_points(aff, seed: int):
+    """Port batch of affine points (None: infinity as (1, 1, 0)) in
+    Jacobian form (x l^2, y l^3, l) with random l, so that Z != 1."""
+    from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+    from kzg_tpu_torch.field import fp
+
+    p = fp.SPEC.modulus
+    lams = random_ints(np.random.default_rng(seed), len(aff), p)
+    cols = [(1, 1, 0) if c is None else
+            (c[0] * l * l % p, c[1] * pow(l, 3, p) % p, l)
+            for c, l in zip(aff, lams)]
+    return JacobianPoint(*(fp.from_int(list(v), CPU) for v in zip(*cols)))
+
+
+def g1_add_case():
+    """8-lane (P, Q) for the complete add, the edge cases of
+    tests/test_pallas_g1.py:64-79 with Z != 1: P+P (the same point under
+    two Z), P+(-P), a generic sum, P+inf and inf+Q with inf as (1, 1, 0)
+    and as all-zero words, and inf+inf. -> (p_aff, q_aff, p, q)."""
+    from kzg_tpu_torch.utils import host_ec
+
+    a = subgroup_affine(50, 8)
+    p_aff = [a[0], a[1], a[2], a[3], a[4], None, None, None]
+    q_aff = [a[0], host_ec.g1_neg(a[1]), a[5], None, None, a[6], a[7], None]
+    p = with_zero_infinity(jacobian_points(p_aff, 51), 6)
+    q = with_zero_infinity(jacobian_points(q_aff, 52), 4)
+    return p_aff, q_aff, p, q
+
+
+def msm_scalars() -> list:
+    """(2, CRS_SIZE) scalars: two MSMs over the 17-point CRS, the first
+    starting with 0, 1 and r-1."""
+    r = _r()
+    ks = random_ints(np.random.default_rng(60), 2 * CRS_SIZE, r)
+    ks[:3] = [0, 1, r - 1]
+    return [ks[:CRS_SIZE], ks[CRS_SIZE:]]
+
+
+# (log2 n, domain scale) of the recorded DAS extensions: the two sizes of
+# tests/test_field_backends.py:93, n = 64 crossing the reference's
+# reduce_hi boundary (6 down levels)
+DAS_CASES = ((3, 4), (6, 8))
+
+
+def das_input(log_n: int) -> list:
+    return random_ints(np.random.default_rng(70 + log_n), 1 << log_n, _r())
+
+
+def slice_evens() -> list:
+    """The whole slice's 8 evens on kzg_env's width-32 domain: the FK20
+    polynomial at w^(2i), w the 16th root of unity. Their extension's
+    inverse FFT is FK20_COEFFS padded with 8 zeros."""
+    from kzg_tpu_torch.field.constants import fr_scale2_root_of_unity
+
+    r = _r()
+    w = fr_scale2_root_of_unity(4)
+    return [eval_poly(FK20_COEFFS, pow(w, 2 * i, r), r) for i in range(FK20_N)]
+
+
 def inputs_hash(*inputs) -> str:
     """sha256 of arrays (shape and bytes) and plain values (repr)."""
     h = hashlib.sha256()

@@ -141,8 +141,10 @@ def test_wrappers_refuse_non_cpu_tensors():
         kernels.fr_scale(fr.SPEC, meta, meta[0])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_butterfly_stage(fr.SPEC, meta.reshape(1, 4, 8), meta, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_dif_stage(fr.SPEC, meta.reshape(1, 4, 8), meta, 0, 1)
     assert kernels.LAUNCHES == {"mont_mul": 0, "fr_scale": 0,
-                                "fr_butterfly_stage": 0}
+                                "fr_butterfly_stage": 0, "fr_dif_stage": 0}
 
 
 def test_plain_engine_limb_roundtrip():
