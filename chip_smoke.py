@@ -7,7 +7,8 @@ Phases; any failure raises and the script exits non-zero with no result:
   1. build every CUDA kernel from kzg_tpu_torch/csrc (one nvcc per source,
      in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, bit
-     for bit, at the main path's shapes;
+     for bit, at the main path's shapes (`butterfly`, on no path, at 2^16
+     Fr and Fp lanes, with one broadcast twiddle and against Python ints);
   3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
      and a few outputs against direct evaluation with Python ints;
   4. the proof path at the PeerDAS shape (EIP-7594: a 4096-element blob
@@ -24,9 +25,23 @@ Phases; any failure raises and the script exits non-zero with no result:
      All seven launch counters must be > 0; the extension must equal the
      plain path's, the commitment the host oracle [p(s)]G, the proofs the
      host oracle;
-  6. times on the card after warm-up: whole calls with CUDA events,
-     each kernel's device time, and the FK20 and commit calls' device
-     activity from torch.profiler traces.
+  6. the reconstruction path at the same shape (a PeerDAS node that holds
+     64 of the 128 cells, consensus-specs recover_cells_and_kzg_proofs):
+     the producer's extension with the other 64 cells' 4096 values
+     garbled -> recover_poly_from_samples -> inverse FFT (top half zero)
+     -> commit_to_poly -> fk20_multi_da_optimized. The six launch counters
+     of the path's kernels must be > 0; the values must equal the
+     extension, the commitment and the 128 proofs the producer's. At
+     n = 1024 with half missing, the legacy erasure_code_recover must
+     equal recover_poly_from_samples;
+  7. the proof API at full width: compute_proof_single on the blob's 4096
+     coefficients ("auto" and "serial" against the host oracle),
+     compute_proof_multi for one cell's coset against that cell's FK20
+     proof, and FK20SingleSettings on an 8192-point CRS with
+     da_using_fk20 (8192 proofs), eight of them against the host oracle;
+  8. times on the card after warm-up: whole calls with CUDA events,
+     each kernel's device time, and the FK20, commit and recovery calls'
+     device activity from torch.profiler traces.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -241,9 +256,12 @@ def main() -> int:
     from kzg_tpu_torch.curve.fft_g1 import fft_g1, reverse_bit_order_g1
     from kzg_tpu_torch.curve.msm import horner_windows, window_sums
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+    from kzg_tpu_torch.das.legacy import erasure_code_recover
+    from kzg_tpu_torch.das.recovery import recover_poly_from_samples
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
     from kzg_tpu_torch.fk20.multi import FK20MultiSettings
+    from kzg_tpu_torch.fk20.single import FK20SingleSettings
     from kzg_tpu_torch.kzg.setup import insecure_kzg_settings_device
     from kzg_tpu_torch.ntt.bitrev import brp_permute
     from kzg_tpu_torch.ntt.das import das_extend_interleaved
@@ -294,6 +312,28 @@ def main() -> int:
         check(same(got, want), f"mont_mul {spec.name} differs")
         checks[f"mont_mul_{spec.name}"] = max_abs_err(got, want)
         log(f"K1 mont_mul {spec.name}: {n} lanes bit-exact")
+        # butterfly: per-lane twiddles (edge values in other lanes than a's
+        # and b's), then one broadcast twiddle, then Python ints
+        tv = random_fr_ints(rng, n - len(near), m) + near[3:] + near[:3]
+        tw = spec.encode(tv, dev)
+        got, want = fk.butterfly(spec, a, b, tw), \
+            fk.butterfly_plain(spec, a, b, tw)
+        check(same(got, want), f"butterfly {spec.name} differs")
+        got1, want1 = fk.butterfly(spec, a, b, tw[-2]), \
+            fk.butterfly_plain(spec, a, b, tw[-2])
+        check(same(got1, want1), f"butterfly {spec.name} (broadcast) differs")
+        checks[f"butterfly_{spec.name}"] = max(max_abs_err(got, want),
+                                               max_abs_err(got1, want1))
+        lanes = [0, 1, n - 8, n - 5, n - 2, n - 1]
+        his, los = (spec.decode(t[lanes]) for t in got)
+        for i, h, lo in zip(lanes, his, los):
+            check((int(h), int(lo)) == ((av[i] + bv[i] * tv[i]) % m,
+                                        (av[i] - bv[i] * tv[i]) % m),
+                  f"butterfly {spec.name} lane {i} disagrees with ints")
+        if spec is fr.SPEC:
+            bf_in = (a, b, tw)
+        log(f"butterfly {spec.name}: {n} lanes bit-exact, per-lane and "
+            f"broadcast twiddle; lanes {lanes} equal Python ints")
 
     fs12 = FFTSettings(12, dev)
     x12 = fr.from_int(random_fr_ints(rng, 1 << 12, r), dev)
@@ -471,7 +511,8 @@ def main() -> int:
     launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"producer path launches: {json.dumps(launches)}")
     for name, cnt in launches.items():
-        check(cnt > 0, f"{name} was not launched on the producer path")
+        check(cnt > 0 or name == "butterfly",
+              f"{name} was not launched on the producer path")
     check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
           "the extension does not keep the evens")
     with plain_path():
@@ -490,7 +531,118 @@ def main() -> int:
         "half of coefficients zero, commitment and 128 proofs equal the "
         "host oracle")
 
-    # ---- 6. times ----
+    # ---- 6. the reconstruction path at the PeerDAS shape ----
+    # cell k holds the extension's natural indices bitrev(l k + j), j < l:
+    # the cells are runs of the reverse-bit-ordered extension
+    bits = n2.bit_length() - 1
+    n_cells = n2 // l
+    held = sorted(rng.choice(n_cells, size=n_cells // 2,
+                             replace=False).tolist())
+    missing = sorted(bitrev(l * k + j, bits) for k in range(n_cells)
+                     if k not in held for j in range(l))
+    samples = ext.clone()
+    samples[missing] = fr.from_int(random_fr_ints(rng, len(missing), r), dev)
+
+    def reconstruct(s):
+        rec = recover_poly_from_samples(fs13, s, missing)
+        rcf = fft(fs13, rec, inverse=True)
+        return (rec, rcf, ks.commit_to_poly(rcf[:n]),
+                fkm.fk20_multi_da_optimized(rcf))
+
+    fk.reset_launches()
+    gk.reset_launches()
+    rec, rcf, rcommit, rproofs = reconstruct(samples)
+    torch.cuda.synchronize()
+    rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"reconstruction path launches: {json.dumps(rec_launches)}")
+    for name in ("mont_mul", "fr_scale", "fr_butterfly_stage",
+                 "g1_scalar_mul", "g1_glv_butterfly", "g1_add"):
+        check(rec_launches[name] > 0,
+              f"{name} was not launched on the reconstruction path")
+    check(len(missing) == n2 // 2 and not same(samples, ext),
+          "the samples do not miss half the extension")
+    check(same(rec, ext), "recovery differs from the extension")
+    check(same(rcf, cf) and not bool(rcf[n:].any()),
+          "recovered coefficients differ or their top half is not zero")
+    check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in rcommit)))
+          == g1.to_affine_ints(JacobianPoint(*(c[None] for c in commit))),
+          "the recomputed commitment differs from the producer's")
+    check(g1.to_affine_ints(rproofs) == g1.to_affine_ints(proofs2),
+          "the recomputed proofs differ from the producer's")
+    log(f"reconstruction path: {len(held)} of {n_cells} cells held, "
+        f"{len(missing)} values recovered exactly; commitment and "
+        f"{n_cells} proofs equal the producer's")
+
+    # the legacy pipeline against the modern one at n = 1024, half missing
+    n_leg = 1024
+    fs11 = FFTSettings(n_leg.bit_length(), dev)
+    lcf = fr.from_int(random_fr_ints(rng, n_leg // 2, r) + [0] * (n_leg // 2),
+                      dev)
+    lev = fft(fs11, lcf)
+    lmiss = sorted(rng.choice(n_leg, size=n_leg // 2, replace=False).tolist())
+    lsamp = lev.clone()
+    lsamp[lmiss] = 0
+    t = time.time()
+    legacy = erasure_code_recover(fs11, lsamp, lmiss)
+    torch.cuda.synchronize()
+    legacy_s = time.time() - t
+    modern = recover_poly_from_samples(fs11, lsamp, lmiss)
+    check(same(legacy, modern) and same(modern, lev),
+          "legacy and modern recovery disagree at n = 1024")
+    log(f"legacy erasure_code_recover = recover_poly_from_samples at "
+        f"n = {n_leg}, half missing ({legacy_s:.2f} s)")
+
+    # ---- 7. the proof API at full width ----
+    s_r = SECRET % r
+
+    def single_proof_oracle(z: int):
+        """[q(s)]G, q = (p - p(z)) / (x - z) by synthetic division of the
+        blob's coefficients."""
+        q, acc = [0] * (n - 1), 0
+        for i in range(n - 1, 0, -1):
+            acc = (cf_ints[i] + z * acc) % r
+            q[i - 1] = acc
+        return host_ec.g1_mul(gen, eval_poly(q, s_r, r))
+
+    zpt = random_fr_ints(rng, 1, r)[0]
+    for method in ("auto", "serial"):
+        pf = ks.compute_proof_single(cf[:n], zpt, method=method)
+        check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in pf)))
+              == [single_proof_oracle(zpt)],
+              f"compute_proof_single ({method}) differs from the host oracle")
+    # cell k is the coset w^bitrev(k) <w_l>, whose proof is the natural
+    # FK20 output bitrev(k)
+    w2 = pow(fs13.root_of_unity_int, fs13.max_width // n2, r)  # order n2
+    cell = held[0]
+    ci = bitrev(cell, n_cells.bit_length() - 1)
+    t = time.time()
+    pm = ks.compute_proof_multi(cf[:n], pow(w2, ci, r), l)
+    torch.cuda.synchronize()
+    proof_multi_s = time.time() - t
+    check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in pm)))
+          == g1.to_affine_ints(JacobianPoint(*(c[ci:ci + 1]
+                                               for c in proofs2))),
+          "compute_proof_multi differs from the cell's FK20 proof")
+    log(f"proof API: compute_proof_single auto = serial = host oracle; "
+        f"compute_proof_multi for cell {cell} (coset w^{ci}, "
+        f"{proof_multi_s:.2f} s) = its FK20 proof")
+
+    t = time.time()
+    ks2 = insecure_kzg_settings_device(SECRET, n2, fs13)
+    fks = FK20SingleSettings(ks2, n2)
+    torch.cuda.synchronize()
+    single_setup_s = time.time() - t
+    sproofs = fks.da_using_fk20(cf[:n])
+    check(sproofs.x.shape == (n2, fp.N_WORDS), "FK20 single proof shape")
+    spots = sorted(rng.choice(n2, size=8, replace=False).tolist())
+    check(g1.to_affine_ints(JacobianPoint(*(c[spots] for c in sproofs)))
+          == [single_proof_oracle(pow(w2, bitrev(i, bits), r))
+              for i in spots],
+          "FK20 single proofs differ from the host oracle")
+    log(f"FK20 single: {n2}-point CRS and settings {single_setup_s:.2f} s; "
+        f"da_using_fk20 gives {n2} proofs, {spots} equal the host oracle")
+
+    # ---- 8. times ----
     def timed(fn, reps):
         return cuda_ms(fn, reps)
 
@@ -549,6 +701,21 @@ def main() -> int:
     commit_profile = trace("commit", lambda: ks.commit_to_poly(cf[:n]),
                            commit_ms)
 
+    recover_ms = timed(lambda: recover_poly_from_samples(fs13, samples,
+                                                         missing), 3)
+    recover_to_proofs_ms = timed(lambda: reconstruct(samples), 2)
+    fk20_single_ms = timed(lambda: fks.da_using_fk20(cf[:n]), 2)
+    log(f"[{card}] recover_poly_from_samples (8192 values, 4096 missing): "
+        f"{recover_ms:.3f} ms; recovery -> inverse FFT -> commit -> 128 "
+        f"proofs {recover_to_proofs_ms:.3f} ms; FK20 single da_using_fk20 "
+        f"({n2} proofs) {fk20_single_ms:.3f} ms; compute_proof_multi "
+        f"(one call, wall) {proof_multi_s * 1e3:.3f} ms")
+    recover_profile = trace(
+        "recovery", lambda: recover_poly_from_samples(fs13, samples, missing),
+        recover_ms)
+
+    path_launches = {"proof": fk20_launches, "producer": launches,
+                     "reconstruction": rec_launches}
     kernels = []
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
@@ -561,9 +728,11 @@ def main() -> int:
         ms = call2_ms if dev_ms is None else dev_ms
         pms = timed(plain_fn, plain_reps)
         b, by = bound_ms(nbytes, products)
+        by_path = {p: c[name] for p, c in path_launches.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
             "bound_by": by, "library_ms": None})
         timing[name] = {"device_ms": dev_ms, "traced_launches": caught,
@@ -668,6 +837,16 @@ def main() -> int:
                                          11, 2),
            2048 * (4 * 32 + 32), 2048 * (2 * 8 * 8 + 8),
            max(checks["fr_dif_stage"], checks["das_extension"]))
+    # butterfly, on no path, at phase 2's 2^16 Fr lanes with per-lane
+    # twiddles: a, b, tw read, hi and lo written, one product a lane
+    ba, bb, bt = bf_in
+    nbl = ba.shape[0]
+    record("butterfly", "butterfly_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:344",
+           lambda: fk.butterfly(FR, ba, bb, bt),
+           lambda: fk.butterfly_plain(FR, ba, bb, bt),
+           5 * 32 * nbl, nbl * (2 * 8 * 8 + 8),
+           max(checks["butterfly_Fr"], checks["butterfly_Fp"]))
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
@@ -676,10 +855,15 @@ def main() -> int:
               "fft_2_20_ms": fft20_ms, "crs_s": crs_s, "setup_s": setup_s,
               "producer_ms": producer_ms, "das_extend_ms": ext_ms,
               "commit_ms": commit_ms, "window_sums_ms": wsums_ms,
-              "horner_ms": horner_ms, "launches": launches,
-              "fk20_launches": fk20_launches, "kernels": kernels,
+              "horner_ms": horner_ms, "recover_ms": recover_ms,
+              "recover_to_proofs_ms": recover_to_proofs_ms,
+              "fk20_single_ms": fk20_single_ms,
+              "fk20_single_setup_s": single_setup_s,
+              "proof_multi_s": proof_multi_s, "legacy_1024_s": legacy_s,
+              "launches": path_launches, "kernels": kernels,
               "kernel_timing": timing, "fk20_profile": profile,
-              "commit_profile": commit_profile}
+              "commit_profile": commit_profile,
+              "recover_profile": recover_profile}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

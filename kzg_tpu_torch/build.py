@@ -31,6 +31,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fr_kernels": {
         "kzg_mont_mul": (_I, _P, _P, _P, _I, _I, _P),
+        "kzg_butterfly": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
         "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
         "kzg_fr_dif_stage": (_P, _P, _I, _I, _I, _I, _P),
     },

@@ -14,6 +14,7 @@ import torch
 
 from .curve.weierstrass import JacobianPoint
 from .fk20.multi import FK20MultiSettings
+from .fk20.single import FK20SingleSettings
 from .kzg.settings import KZGSettings
 from .ntt.domain import FFTSettings
 
@@ -42,12 +43,26 @@ def point_to_ref(p: JacobianPoint):
     return tuple(words_to_ref(c) for c in p)
 
 
+def kzg_settings_from_reference(fs: FFTSettings, secret_g1) -> KZGSettings:
+    """Port settings on a JAX KZGSettings' `secret_g1`, given as its
+    (x, y, z) numpy arrays."""
+    return KZGSettings(fs, point_from_ref(*secret_g1, device=fs.device))
+
+
 def fk20_settings_from_reference(fs: FFTSettings, secret_g1, n2: int,
                                  chunk_len: int,
                                  x_ext_fft_files) -> FK20MultiSettings:
     """Port settings from a JAX FK20MultiSettings' `ks.secret_g1` and
     `x_ext_fft_files`, each given as its (x, y, z) numpy arrays."""
-    dev = fs.device
-    ks = KZGSettings(fs, point_from_ref(*secret_g1, device=dev))
     return FK20MultiSettings.from_reference_arrays(
-        ks, n2, chunk_len, point_from_ref(*x_ext_fft_files, device=dev))
+        kzg_settings_from_reference(fs, secret_g1), n2, chunk_len,
+        point_from_ref(*x_ext_fft_files, device=fs.device))
+
+
+def fk20_single_settings_from_reference(fs: FFTSettings, secret_g1, n2: int,
+                                        x_ext_fft) -> FK20SingleSettings:
+    """Port settings from a JAX FK20SingleSettings' `ks.secret_g1` and
+    `x_ext_fft`, each given as its (x, y, z) numpy arrays."""
+    return FK20SingleSettings.from_reference_arrays(
+        kzg_settings_from_reference(fs, secret_g1), n2,
+        point_from_ref(*x_ext_fft, device=fs.device))

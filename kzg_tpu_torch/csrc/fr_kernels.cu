@@ -1,4 +1,5 @@
-// Field kernels K1 (mont_mul), K2 (fr_butterfly_stage) and fr_dif_stage,
+// Field kernels K1 (mont_mul), K2 (fr_butterfly_stage), fr_dif_stage and
+// butterfly,
 // built by nvcc for sm_90a into a shared library with a plain C interface
 // (loaded by kzg_tpu_torch/build.py through ctypes).
 //
@@ -15,6 +16,10 @@
 // every few levels (reduce_hi). Here every value is canonical after every
 // operation, so none of that is needed: the stage is one add, one sub and
 // one product per butterfly.
+// butterfly replaces ::_butterfly_fn (butterfly_pallas): the canonical
+// fused butterfly (a + b*tw, a - b*tw) over separate a, b and tw arrays,
+// for Fr or Fp, tw one per lane or one broadcast element. No path runs it
+// (in the JAX package too, only a test does); the FFT stays on K2.
 //
 // Bound on this card: a canonical product moves 3 x 4N bytes (a, b, out)
 // and does 2N^2 + N 32x32->64 multiply-adds (300 for Fp, 136 for Fr).
@@ -45,6 +50,27 @@ __global__ void __launch_bounds__(kThreads)
   kzg::load<N>(y, b + (b_bcast ? 0 : (size_t)i * N));
   kzg::mul<N>(x, x, y);
   kzg::store<N>(out + (size_t)i * N, x);
+}
+
+// hi = a + b*tw, lo = a - b*tw per lane; tw is one element when tw_bcast.
+// Bound as K1: it moves 5 x 4N bytes (a, b, tw, hi, lo) for one product.
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    butterfly_kernel(int32_t* __restrict__ hi, int32_t* __restrict__ lo,
+                     const int32_t* __restrict__ a,
+                     const int32_t* __restrict__ b,
+                     const int32_t* __restrict__ tw, int n, int tw_bcast) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[N], y[N], w[N], s[N];
+  kzg::load<N>(x, a + (size_t)i * N);
+  kzg::load<N>(y, b + (size_t)i * N);
+  kzg::load<N>(w, tw + (tw_bcast ? 0 : (size_t)i * N));
+  kzg::mul<N>(y, y, w);
+  kzg::add<N>(s, x, y);
+  kzg::sub<N>(x, x, y);
+  kzg::store<N>(hi + (size_t)i * N, s);
+  kzg::store<N>(lo + (size_t)i * N, x);
 }
 
 // Thread t of a stage of width m = 2^(log_half+1) over `batch` rows of
@@ -124,6 +150,24 @@ extern "C" int kzg_mont_mul(int n_words, void* out, const void* a,
   } else if (n_words == 12) {
     mont_mul_kernel<12><<<blocks(n), kThreads, 0, s>>>(
         (int32_t*)out, (const int32_t*)a, (const int32_t*)b, n, b_bcast);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_butterfly(int n_words, void* hi, void* lo, const void* a,
+                             const void* b, const void* tw, int n,
+                             int tw_bcast, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_words == 8) {
+    butterfly_kernel<8><<<blocks(n), kThreads, 0, s>>>(
+        (int32_t*)hi, (int32_t*)lo, (const int32_t*)a, (const int32_t*)b,
+        (const int32_t*)tw, n, tw_bcast);
+  } else if (n_words == 12) {
+    butterfly_kernel<12><<<blocks(n), kThreads, 0, s>>>(
+        (int32_t*)hi, (int32_t*)lo, (const int32_t*)a, (const int32_t*)b,
+        (const int32_t*)tw, n, tw_bcast);
   } else {
     return (int)cudaErrorInvalidValue;
   }

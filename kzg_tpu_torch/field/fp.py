@@ -41,13 +41,7 @@ def sqr(a):
 def inv(a):
     """Fermat inverse a^(p-2), lane-parallel (square-and-multiply over
     the static exponent, MSB first); 0 -> 0."""
-    e = SPEC.modulus - 2
-    acc = a
-    for bit in bin(e)[3:]:
-        acc = sqr(acc)
-        if bit == "1":
-            acc = mul(acc, a)
-    return acc
+    return limbs.pow_static(SPEC, mul, a, SPEC.modulus - 2)
 
 
 eq = limbs.eq

@@ -1,8 +1,9 @@
 """The BLS12-381 scalar field Fr as batched 32-bit words.
 
 An Fr batch is a torch.int32 tensor (..., 8) in Montgomery form
-(R = 2^256), always fully reduced. `mul` runs on kernel K1; add, sub and
-neg are plain tensor code.
+(R = 2^256), always fully reduced. `mul` runs on kernel K1, and so do
+the Fermat ladder of `inv` and the scans of `batch_inv`; add, sub and neg
+are plain tensor code.
 """
 
 from __future__ import annotations
@@ -33,6 +34,33 @@ def neg(a):
 
 def mul(a, b):
     return mont_mul(SPEC, a, b)
+
+
+def pow_static(a, e: int):
+    return limbs.pow_static(SPEC, mul, a, e)
+
+
+def inv(a):
+    """Fermat inverse a^(r-2), lane-parallel; 0 -> 0."""
+    return pow_static(a, SPEC.modulus - 2)
+
+
+def batch_inv(a):
+    """Montgomery-trick batch inversion (limbs.batch_inv); 0 -> 0."""
+    return limbs.batch_inv(SPEC, mul, a)
+
+
+def div(a, b):
+    return mul(a, inv(b))
+
+
+eq = limbs.eq
+is_zero = limbs.is_zero
+select = limbs.select
+
+
+def is_one(a):
+    return eq(a, SPEC.words([SPEC.one_mont], a.device)[0])
 
 
 def zeros(shape=(), device="cuda") -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Field kernels K1 (`mont_mul`, and its `fr_scale` exit form), K2
-(`fr_butterfly_stage`) and `fr_dif_stage`, with their plain PyTorch
-versions.
+(`fr_butterfly_stage`), `fr_dif_stage` and `butterfly`, with their plain
+PyTorch versions.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (csrc/fr_kernels.cu) or raises. Each
@@ -16,7 +16,7 @@ from . import limbs
 from .limbs import FieldSpec
 
 LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
-            "fr_dif_stage": 0}
+            "fr_dif_stage": 0, "butterfly": 0}
 
 FR_WORDS = 8
 
@@ -94,6 +94,42 @@ def fr_scale(spec: FieldSpec, x, c) -> torch.Tensor:
     if c.dim() != 1:
         raise ValueError("fr_scale: c must be one element (N,)")
     return _launch_mont_mul(spec, x, c, "fr_scale")
+
+
+def butterfly_plain(spec: FieldSpec, a, b, tw):
+    a, b, tw = torch.broadcast_tensors(a, b, tw)
+    t = limbs.mont_mul_plain(spec, b, tw)
+    return limbs.add(spec, a, t), limbs.sub(spec, a, t)
+
+
+def butterfly(spec: FieldSpec, a, b, tw):
+    """The fused butterfly (a + b*tw, a - b*tw) for Fr or Fp words, tw
+    broadcast against the batch (replaces
+    kzg_tpu/field/pallas_kernels.py::_butterfly_fn). On the card a and b
+    are materialised at the broadcast shape, and tw too unless it is one
+    element (N,)."""
+    if a.device.type == "cpu":
+        return butterfly_plain(spec, a, b, tw)
+    N = spec.n_words
+    shape = torch.broadcast_shapes(a.shape, b.shape, tw.shape)
+    aa = a.expand(shape).contiguous()
+    bb = b.expand(shape).contiguous()
+    bcast = tw.dim() == 1
+    ww = tw if bcast else tw.expand(shape).contiguous()
+    for t in (aa, bb, ww):
+        check_words(t, N, "butterfly")
+        if t.device != aa.device:
+            raise ValueError("butterfly: operands on different devices")
+    hi, lo = torch.empty_like(aa), torch.empty_like(aa)
+    n = aa.numel() // N
+    if n:
+        lib = build.library("fr_kernels")
+        LAUNCHES["butterfly"] += 1
+        build.check(lib.kzg_butterfly(N, hi.data_ptr(), lo.data_ptr(),
+                                      aa.data_ptr(), bb.data_ptr(),
+                                      ww.data_ptr(), n, int(bcast),
+                                      stream_of(aa)), "butterfly")
+    return hi, lo
 
 
 def _halves(x, log_half: int):

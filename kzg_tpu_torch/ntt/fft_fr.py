@@ -20,7 +20,8 @@ def _fft_core(vals: torch.Tensor, roots: torch.Tensor, inv_log2,
               max_width: int) -> torch.Tensor:
     """vals (..., n, 8), n a power of two. inv_log2: None (forward) or the
     log2 of the inverse scale's denominator, given by the caller and never
-    derived from the shape (a sharded local IFFT scales by the global n)."""
+    derived from the shape (a sharded local IFFT scales by the global n).
+    0 is an inverse transform scaled by 2^0 = 1, distinct from None."""
     n = vals.shape[-2]
     batch_shape = vals.shape[:-2]
     # a fresh contiguous copy: the stages run in place
@@ -29,7 +30,7 @@ def _fft_core(vals: torch.Tensor, roots: torch.Tensor, inv_log2,
     logn = n.bit_length() - 1
     for s in range(1, logn + 1):
         fr_butterfly_stage(fr.SPEC, x, roots, s - 1, max_width >> s)
-    if inv_log2:
+    if inv_log2 is not None:
         c = fr.from_int(pow(1 << inv_log2, -1, fr.SPEC.modulus), x.device)
         x = fr_scale(fr.SPEC, x, c)
     return x.reshape(batch_shape + (n, fr.N_WORDS))

@@ -19,21 +19,34 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-sys.path[:0] = [ROOT, HERE]
+sys.path[:0] = [ROOT, HERE, os.path.dirname(HERE)]
 
 import conftest  # noqa: E402,F401  (JAX on the CPU, as for the JAX tests)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import port_helpers as ph  # noqa: E402
+from test_das import GOLDEN_ZP_MISSING  # noqa: E402
 
+from kzg_tpu import poly  # noqa: E402
 from kzg_tpu.curve import g1  # noqa: E402
 from kzg_tpu.curve import pallas_g1  # noqa: E402
 from kzg_tpu.curve.fft_g1 import fft_g1  # noqa: E402
 from kzg_tpu.curve.msm import lin_comb_g1, tree_reduce  # noqa: E402
-from kzg_tpu.field import fr  # noqa: E402
+from kzg_tpu.das import batch_inv as legacy_batch_inv  # noqa: E402
+from kzg_tpu.das import (  # noqa: E402
+    erasure_code_recover,
+    recover_poly_from_samples,
+    shift_poly,
+    unshift_poly,
+)
+from kzg_tpu.das.zero_poly import zero_poly_via_multiplication  # noqa: E402
+from kzg_tpu.field import fp, fr  # noqa: E402
 from kzg_tpu.field.backend import set_field_backend  # noqa: E402
-from kzg_tpu.field.pallas_kernels import butterfly_lazy_dif  # noqa: E402
-from kzg_tpu.fk20 import FK20MultiSettings  # noqa: E402
+from kzg_tpu.field.pallas_kernels import (  # noqa: E402
+    butterfly_lazy_dif,
+    butterfly_pallas,
+)
+from kzg_tpu.fk20 import FK20MultiSettings, FK20SingleSettings  # noqa: E402
 from kzg_tpu.kzg import KZGSettings, generate_testing_setup  # noqa: E402
 from kzg_tpu.ntt import FFTSettings, fft  # noqa: E402
 from kzg_tpu.ntt.das import _das_core, _das_stage_tws  # noqa: E402
@@ -136,8 +149,111 @@ def record_das(put):
     put("dif_level", np.stack([np.asarray(hi), np.asarray(lo)]), vals, scale)
 
 
+def record_field(put):
+    """_butterfly_fn interpreted, and the zero-masked batch inversion."""
+    for jmod in (fr, fp):
+        abt = jmod.from_int(ph.butterfly_input(jmod.SPEC.modulus))
+        hi, lo = butterfly_pallas(jmod.SPEC, *(jnp.asarray(v) for v in abt))
+        put(f"butterfly:{jmod.SPEC.name}", np.stack([hi, lo]), abt)
+    vals = fr.from_int(ph.batch_inv_input())
+    put("batch_inv", fr.batch_inv(jnp.asarray(vals)), vals)
+
+
+def record_poly(put):
+    c = ph.poly_case()
+    coeffs, xs = fr.from_int(c["coeffs"]), fr.from_int(c["xs"])
+    put("poly:eval_at", poly.eval_poly_at(jnp.asarray(coeffs),
+                                          jnp.asarray(xs)), coeffs, xs)
+    put("poly:eval_at_parallel", np.stack([
+        poly.eval_poly_at_parallel(jnp.asarray(coeffs), jnp.asarray(x))
+        for x in xs]), coeffs, xs)
+    x = fr.from_int(ph.POWERS_X)
+    put("poly:powers_of", poly.powers_of(jnp.asarray(x), ph.POWERS_N), x)
+    vals = fr.from_int(c["sum"])
+    put("poly:sum_fr", poly.sum_fr(jnp.asarray(vals), axis=0), vals)
+    polys, sc = fr.from_int(c["polys"]), fr.from_int(c["scalars"])
+    put("poly:lin_comb", poly.poly_lin_comb(jnp.asarray(polys),
+                                            jnp.asarray(sc)), polys, sc)
+    p, z = fr.from_int(c["p"]), fr.from_int(c["z"])
+    put("poly:factor_div", poly.poly_factor_div(jnp.asarray(p),
+                                                jnp.asarray(z)), p, z)
+    a, b = fr.from_int(c["dividend"]), fr.from_int(c["divisor"])
+    put("poly:long_div", poly.poly_long_div(jnp.asarray(a), jnp.asarray(b)),
+        a, b)
+    c16, z = fr.from_int(c["c16"]), fr.from_int(ph.POLY_Z)
+    put("poly:quotient_on_domain", poly.poly_quotient_on_domain(
+        FFTSettings(5), jnp.asarray(c16), jnp.asarray(z)), c16, z)
+    fs = FFTSettings(4)
+    evals = jnp.asarray(fft(fs, jnp.asarray(c16)))
+    domain = jnp.asarray(fr.from_int([pow(fs.root_of_unity_int, i,
+                                          fr.SPEC.modulus)
+                                      for i in range(16)]))
+    width_inv = jnp.asarray(fr.from_int(pow(16, -1, fr.SPEC.modulus)))
+    for name, x in (("off", fr.from_int(ph.POLY_X)), ("on", domain[5])):
+        put(f"poly:eval_form:{name}", poly.eval_poly_in_evaluation_form(
+            evals, domain, jnp.asarray(x), width_inv), c16, x)
+
+
+def record_recovery(put):
+    for scale, ratio in ph.ZERO_POLY_CASES:
+        missing = ph.zero_poly_missing(scale, ratio)
+        put(f"zero_poly:{scale}", np.stack(zero_poly_via_multiplication(
+            FFTSettings(scale + 1), missing, 1 << scale)), missing)
+    put("zero_poly:golden", np.stack(zero_poly_via_multiplication(
+        FFTSettings(4), GOLDEN_ZP_MISSING, 16)), GOLDEN_ZP_MISSING)
+    missing = ph.tree_missing()
+    put("zero_poly:tree", np.stack(zero_poly_via_multiplication(
+        FFTSettings(9), missing, 256)), missing)
+    vals = fr.from_int(list(range(1, 9)))
+    put("shift_poly", np.stack([shift_poly(jnp.asarray(vals)),
+                                unshift_poly(jnp.asarray(vals))]), vals)
+    vals = fr.from_int([v or 1 for v in ph.batch_inv_input()])
+    put("legacy_batch_inv", legacy_batch_inv(jnp.asarray(vals)), vals)
+    for seed, ratio in ph.RECOVERY_CASES:
+        _, samples, missing = ph.recovery_case(seed, ratio)
+        s = fr.from_int(samples)
+        put(f"recover:{seed}", recover_poly_from_samples(
+            FFTSettings(6), jnp.asarray(s), missing), s, missing)
+    samples, missing = ph.erasure_only_case()
+    s = fr.from_int(samples)
+    put("recover:erasure_only", recover_poly_from_samples(
+        FFTSettings(5), jnp.asarray(s), missing), s, missing)
+    for scale, seed in ph.LEGACY_CASES:
+        _, samples, missing = ph.recovery_case(seed, 0.5, scale)
+        s = fr.from_int(samples)
+        fs = FFTSettings(scale + 1)
+        put(f"legacy:{seed}", np.stack([
+            erasure_code_recover(fs, jnp.asarray(s), missing),
+            recover_poly_from_samples(fs, jnp.asarray(s), missing)]),
+            s, missing)
+
+
+def record_proofs(put):
+    ks = kzg_env()
+    coeffs = fr.from_int(ph.PROOF_COEFFS)
+    for method in ("auto", "serial"):
+        put(f"proof_single:{method}", tuple(ks.compute_proof_single(
+            jnp.asarray(coeffs), ph.PROOF_X, method=method)),
+            ph.TEST_SECRET, ph.CRS_SIZE, coeffs, ph.PROOF_X)
+    put("proof_multi", tuple(ks.compute_proof_multi(
+        jnp.asarray(coeffs), ph.MULTI_X, ph.MULTI_N)),
+        ph.TEST_SECRET, ph.CRS_SIZE, coeffs, ph.MULTI_X, ph.MULTI_N)
+    fk = FK20SingleSettings(ks, ph.FK20_N2)
+    put("fk20_single:tables", tuple(fk.x_ext_fft), ph.TEST_SECRET,
+        ph.CRS_SIZE, ph.FK20_N2)
+    poly_ = fr.from_int(ph.FK20_COEFFS)
+    ext = fr.from_int(ph.FK20_COEFFS + [0] * ph.FK20_N)
+    put("fk20_single:single", tuple(fk.fk20_single(jnp.asarray(poly_))),
+        poly_)
+    put("fk20_single:da", tuple(fk.da_using_fk20(jnp.asarray(poly_))), poly_)
+    put("fk20_single:da_optimized",
+        tuple(fk.fk20_single_da_optimized(jnp.asarray(ext))), ext)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
-          "g1_add": record_g1_add, "msm": record_msm, "das": record_das}
+          "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
+          "field": record_field, "poly": record_poly,
+          "recovery": record_recovery, "proofs": record_proofs}
 
 
 def main(names) -> None:

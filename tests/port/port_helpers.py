@@ -222,6 +222,109 @@ def slice_evens() -> list:
     return [eval_poly(FK20_COEFFS, pow(w, 2 * i, r), r) for i in range(FK20_N)]
 
 
+def butterfly_input(modulus: int) -> list:
+    """(a, b, tw) of 200 lanes each, the width of
+    tests/test_field_backends.py:78-89, with the edge values in the first
+    lanes of each."""
+    rng = np.random.default_rng(100 + modulus % 97)
+    edges = edge_ints(modulus)
+    return [edges[k:] + edges[:k] + random_ints(rng, 200 - len(edges),
+                                                 modulus)
+            for k in range(3)]
+
+
+def batch_inv_input() -> list:
+    """13 lanes (tests/test_das.py:88-95) with zero in lanes 3 and 9."""
+    vals = random_ints(np.random.default_rng(17), 13, _r())
+    vals[3] = vals[9] = 0
+    return vals
+
+
+# tests/test_poly.py's cases: points and shapes; values from poly_case
+POLY_Z = 987123          # a quotient point off the 16th roots of unity
+POLY_X = 777777          # a barycentric evaluation point
+POWERS_X, POWERS_N = 12345, 9
+
+
+def poly_case() -> dict:
+    """Seeded inputs of tests/test_poly.py's cases, as canonical ints."""
+    rng = np.random.default_rng(110)
+    r = _r()
+    q = random_ints(rng, 9, r)
+    z = random_ints(rng, 1, r)[0]
+    p = [0] * 10                      # p = q (x - z), divisible by x - z
+    for i, c in enumerate(q):
+        p[i + 1] = (p[i + 1] + c) % r
+        p[i] = (p[i] - c * z) % r
+    return {"coeffs": random_ints(rng, 13, r), "xs": random_ints(rng, 4, r),
+            "sum": random_ints(rng, 7, r),
+            "polys": [random_ints(rng, 8, r) for _ in range(3)],
+            "scalars": random_ints(rng, 3, r), "q": q, "z": z, "p": p,
+            "dividend": random_ints(rng, 12, r),
+            "divisor": random_ints(rng, 4, r),
+            "c16": random_ints(rng, 16, r)}
+
+
+# tests/test_das.py's zero-polynomial and recovery cases
+ZERO_POLY_CASES = ((4, 0.25), (5, 0.5), (6, 0.75))
+RECOVERY_CASES = ((1, 0.5), (2, 0.7), (3, 0.95))
+# (scale, seed) of the legacy parity case and the legacy-vs-modern one,
+# each with half the lanes missing
+LEGACY_CASES = ((4, 4), (5, 14))
+
+
+def zero_poly_missing(scale: int, ratio: float) -> list:
+    """The missing indices of test_zero_poly_vs_oracle."""
+    n = 1 << scale
+    m = min(max(1, int(n * ratio)), n - 1)
+    rng = np.random.default_rng(scale)
+    return sorted(rng.choice(n, size=m, replace=False).tolist())
+
+
+def tree_missing() -> list:
+    """Half of 256 indices missing: 128 > 64 factors, two leaves and one
+    tree level (test_zero_poly_multi_leaf_tree)."""
+    rng = np.random.default_rng(88)
+    return sorted(rng.choice(256, size=128, replace=False).tolist())
+
+
+def erasure_coded(scale: int, rng) -> list:
+    """The evaluations of a random polynomial of degree < n/2 on the
+    2^scale domain (tests/oracle.py's FFT)."""
+    import oracle
+
+    n = 1 << scale
+    coeffs = [int(rng.integers(0, 2**62)) % _r() for _ in range(n // 2)]
+    return oracle.fft(coeffs + [0] * (n // 2))
+
+
+def recovery_case(seed: int, known_ratio: float, scale: int = 5):
+    """test_recover_poly_from_samples's inputs: (evals, samples with 0 in
+    the missing lanes, missing)."""
+    n = 1 << scale
+    rng = np.random.default_rng(seed)
+    evals = erasure_coded(scale, rng)
+    n_missing = min(n - int(n * known_ratio), n // 2)
+    missing = sorted(rng.choice(n, size=n_missing, replace=False).tolist())
+    samples = [0 if i in missing else v for i, v in enumerate(evals)]
+    return evals, samples, missing
+
+
+def erasure_only_case():
+    """test_recover_is_erasure_only: two missing lanes, and a corrupted
+    known sample (lane 7) that recovery must reproduce verbatim."""
+    evals = erasure_coded(4, np.random.default_rng(9))
+    samples = list(evals)
+    samples[7] = (samples[7] + 1) % _r()
+    return samples, [0, 3]
+
+
+# tests/test_kzg.py's polynomial and points
+PROOF_COEFFS = [1, 2, 3, 4, 7, 7, 7, 7, 13, 13, 13, 13, 13, 13, 13, 13]
+PROOF_X = 17
+MULTI_X, MULTI_N = 5, 4
+
+
 def inputs_hash(*inputs) -> str:
     """sha256 of arrays (shape and bytes) and plain values (repr)."""
     h = hashlib.sha256()

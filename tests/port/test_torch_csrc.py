@@ -43,6 +43,23 @@ def test_curve_header_constants():
         fp.SPEC.to_mont_int(GLV_BETA)
 
 
+@pytest.mark.parametrize("fn,argc", [("kzg_mont_mul", 7),
+                                     ("kzg_butterfly", 9)])
+def test_field_generic_entry_points(fn, argc):
+    """The entry points that take any FieldSpec launch their template for
+    N = 8 (Fr) and N = 12 (Fp) and refuse other widths."""
+    assert len(build.SIGNATURES["fr_kernels"][fn]) == argc
+    text = source("fr_kernels.cu")
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    kernel = {"kzg_mont_mul": "mont_mul_kernel",
+              "kzg_butterfly": "butterfly_kernel"}[fn]
+    for n in (fp.SPEC.n_words, fr.SPEC.n_words):
+        assert f"n_words == {n}" in body
+        assert f"{kernel}<{n}><<<" in body
+    assert "cudaErrorInvalidValue" in body
+
+
 def test_entry_points_match_bindings():
     for lib, fns in build.SIGNATURES.items():
         assert lib in build.SOURCES

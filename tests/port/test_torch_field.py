@@ -1,11 +1,20 @@
 """Fr/Fp arithmetic of the port against the JAX package, and the kernel
-wrappers of field/kernels.py (K1 mont_mul, fr_scale, K2) on the CPU."""
+wrappers of field/kernels.py (K1 mont_mul, fr_scale, K2, butterfly) on the
+CPU. The interpreted _butterfly_fn and the JAX batch inversion, slow to
+compile, are recorded (port_helpers.py)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from port_helpers import CPU, edge_ints, random_ints
+from port_helpers import (
+    CPU,
+    batch_inv_input,
+    butterfly_input,
+    edge_ints,
+    random_ints,
+    reference,
+)
 
 from kzg_tpu.field import fp as jfp
 from kzg_tpu.field import fr as jfr
@@ -143,8 +152,81 @@ def test_wrappers_refuse_non_cpu_tensors():
         kernels.fr_butterfly_stage(fr.SPEC, meta.reshape(1, 4, 8), meta, 0, 1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_dif_stage(fr.SPEC, meta.reshape(1, 4, 8), meta, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.butterfly(fr.SPEC, meta, meta, meta[0])
     assert kernels.LAUNCHES == {"mont_mul": 0, "fr_scale": 0,
-                                "fr_butterfly_stage": 0, "fr_dif_stage": 0}
+                                "fr_butterfly_stage": 0, "fr_dif_stage": 0,
+                                "butterfly": 0}
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_butterfly_matches_pallas_kernel(name):
+    """(a + b tw, a - b tw) at the 200 lanes of
+    tests/test_field_backends.py:78-89: the same words as _butterfly_fn
+    in interpret mode (recorded), and the Python ints; then with one
+    broadcast twiddle."""
+    jmod, mod = FIELDS[name]
+    m = mod.SPEC.modulus
+    av, bv, tv = butterfly_input(m)
+    a, b, tw = (mod.from_int(v, CPU) for v in (av, bv, tv))
+    hi, lo = kernels.butterfly(mod.SPEC, a, b, tw)
+    want = reference(f"butterfly:{name}", jmod.from_int([av, bv, tv]))
+    assert torch.equal(torch.stack([hi, lo]),
+                       convert.words_from_ref(want, CPU))
+    assert list(mod.to_int(hi)) == [(x + y * t) % m
+                                    for x, y, t in zip(av, bv, tv)]
+    assert list(mod.to_int(lo)) == [(x - y * t) % m
+                                    for x, y, t in zip(av, bv, tv)]
+    hi1, lo1 = kernels.butterfly(mod.SPEC, a, b, tw[5])
+    t = tv[5]
+    assert list(mod.to_int(hi1)) == [(x + y * t) % m for x, y in zip(av, bv)]
+    assert list(mod.to_int(lo1)) == [(x - y * t) % m for x, y in zip(av, bv)]
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 12345, fr.SPEC.modulus - 2])
+def test_fr_pow_static_matches_reference(e):
+    (a, _), (ja, _), (av, _) = operands("Fr", seed=13)
+    a, ja, av = a[:16], ja[:16], av[:16]
+    got = fr.pow_static(a, e)
+    want = np.asarray(jfr.pow_static(ja, e))
+    assert torch.equal(got, convert.words_from_ref(want, CPU))
+    assert list(fr.to_int(got)) == [pow(x, e, fr.SPEC.modulus) for x in av]
+
+
+def test_fr_inv_div_and_predicates_match_reference():
+    """Fermat inv (0 -> 0) and div against the JAX package; eq, is_zero,
+    is_one, select."""
+    (a, b), (ja, jb), (av, bv) = operands("Fr", seed=14)
+    a, b, ja, jb, av, bv = a[:20], b[:20], ja[:20], jb[:20], av[:20], bv[:20]
+    r = fr.SPEC.modulus
+    got = fr.inv(a)
+    assert torch.equal(got, convert.words_from_ref(np.asarray(jfr.inv(ja)),
+                                                   CPU))
+    assert list(fr.to_int(got)) == [pow(x, -1, r) if x else 0 for x in av]
+    assert list(fr.to_int(fr.div(a, b))) == \
+        [x * pow(y, -1, r) % r if y else 0 for x, y in zip(av, bv)]
+    assert fr.eq(a, a).all() and not fr.eq(a, fr.add(a, fr.from_int(1, CPU))
+                                           ).any()
+    assert fr.is_zero(a).tolist() == [x == 0 for x in av]
+    assert fr.is_one(a).tolist() == [x == 1 for x in av]
+    mask = torch.tensor([i % 2 == 0 for i in range(20)])
+    assert list(fr.to_int(fr.select(mask, a, b))) == \
+        [x if i % 2 == 0 else y for i, (x, y) in enumerate(zip(av, bv))]
+
+
+def test_fr_batch_inv_masks_zero_lanes():
+    """The Montgomery trick with zero lanes 3 and 9: they map to 0 and do
+    not poison the rest, as in the JAX package (recorded) and Fermat."""
+    vals = batch_inv_input()
+    got = fr.batch_inv(fr.from_int(vals, CPU))
+    want = reference("batch_inv", jfr.from_int(vals))
+    assert torch.equal(got, convert.words_from_ref(want, CPU))
+    r = fr.SPEC.modulus
+    assert list(fr.to_int(got)) == [pow(v, -1, r) if v else 0 for v in vals]
+    # a leading batch shape, and the one-element case (Fermat alone)
+    two = fr.batch_inv(fr.from_int(vals[:12], CPU).reshape(3, 4, 8))
+    assert torch.equal(two.reshape(12, 8), got[:12])
+    assert torch.equal(fr.batch_inv(fr.from_int(vals[:1], CPU)), got[:1])
 
 
 def test_plain_engine_limb_roundtrip():

@@ -35,7 +35,10 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert set(seen["modules"]) >= {
         "kzg_tpu_torch.curve.msm", "kzg_tpu_torch.curve.kernels",
         "kzg_tpu_torch.field.kernels", "kzg_tpu_torch.kzg.settings",
-        "kzg_tpu_torch.ntt.das", "kzg_tpu_torch.fk20.multi"}
-    assert len(seen["modules"]) >= 21
+        "kzg_tpu_torch.ntt.das", "kzg_tpu_torch.fk20.multi",
+        "kzg_tpu_torch.poly", "kzg_tpu_torch.das.zero_poly",
+        "kzg_tpu_torch.das.recovery", "kzg_tpu_torch.das.legacy",
+        "kzg_tpu_torch.fk20.single", "kzg_tpu_torch.convert"}
+    assert len(seen["modules"]) >= 26
     assert seen["loaded"] == []
     assert seen["built"] == 0
