@@ -5,31 +5,40 @@
 
 Phases; any failure raises and the script exits non-zero with no result:
   1. build every CUDA kernel from kzg_tpu_torch/csrc (one nvcc per source,
-     in parallel) and print the card's name and power limit;
+     in parallel), print each kernel's registers, stack frame and spill
+     bytes from ptxas, and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, bit
      for bit, at the main path's shapes (`butterfly`, on no path, at 2^16
-     Fr and Fp lanes, with one broadcast twiddle and against Python ints);
+     Fr and Fp lanes, with one broadcast twiddle and against Python ints;
+     the G1 FFT stage at 16 points, dense and 4 x 4, and at 128 points
+     dense, and at 16 points summing to zero (an output at infinity), and K4 under a forced radix-2 plan at 128, whose transform
+     must equal the dense one in affine form; the window tables and the
+     fixed-base product at 2^10 lanes, and at the path's 8192 in 4);
   3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
      and a few outputs against direct evaluation with Python ints;
   4. the proof path at the PeerDAS shape (EIP-7594: a 4096-element blob
      extended to 8192, 64-element cells, 128 cell proofs): device CRS of
-     4096 points, FK20MultiSettings(n2=8192, l=64), blob -> coefficients
+     4096 points, FK20MultiSettings(n2=8192, l=64) with its fixed-base
+     tables (built and counted as the setup path), blob -> coefficients
      (inverse FFT) -> da_using_fk20_multi. The launch counters of its
      kernels must be > 0; the 128 proofs must equal the same call on the
      plain path on the card and an exact host oracle ([q(s)]G for the
-     known secret);
+     known secret). The plain path rebuilds the settings' 64-window
+     tables on the plain version and they must equal the kernel's; part
+     2's fixed-base product at the path's 8192 lanes must equal its plain
+     version bit for bit and K3's in affine form;
   5. the producer path at the same shape (a blob builder's flow,
      examples/full_das_pipeline.py:49-78): 4096 evaluations ->
      das_extend_interleaved -> 8192 values -> inverse FFT (top half zero)
      -> commit_to_poly (a 4096-point MSM) -> fk20_multi_da_optimized.
-     All seven launch counters must be > 0; the extension must equal the
-     plain path's, the commitment the host oracle [p(s)]G, the proofs the
-     host oracle;
+     The launch counters of its kernels must be > 0; the extension must
+     equal the plain path's, the commitment the host oracle [p(s)]G, the
+     proofs the host oracle;
   6. the reconstruction path at the same shape (a PeerDAS node that holds
      64 of the 128 cells, consensus-specs recover_cells_and_kzg_proofs):
      the producer's extension with the other 64 cells' 4096 values
      garbled -> recover_poly_from_samples -> inverse FFT (top half zero)
-     -> commit_to_poly -> fk20_multi_da_optimized. The six launch counters
+     -> commit_to_poly -> fk20_multi_da_optimized. The launch counters
      of the path's kernels must be > 0; the values must equal the
      extension, the commitment and the 128 proofs the producer's. At
      n = 1024 with half missing, the legacy erasure_code_recover must
@@ -38,10 +47,15 @@ Phases; any failure raises and the script exits non-zero with no result:
      coefficients ("auto" and "serial" against the host oracle),
      compute_proof_multi for one cell's coset against that cell's FK20
      proof, and FK20SingleSettings on an 8192-point CRS with
-     da_using_fk20 (8192 proofs), eight of them against the host oracle;
+     da_using_fk20 (8192 proofs, its launches counted as a path), eight
+     of them against the host oracle;
   8. times on the card after warm-up: whole calls with CUDA events,
-     each kernel's device time, and the FK20, commit and recovery calls'
-     device activity from torch.profiler traces.
+     each kernel's device time (its output first held bit for bit against
+     its plain version at the timed shape), the old ladder kernels beside the new
+     ones in turns, the 8192-point G1 FFT under several radix plans with
+     each stage's time, the product's dependent latency (a one-lane K3
+     launch), and the FK20, commit and recovery calls' device activity
+     from torch.profiler traces.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -50,6 +64,7 @@ imports nothing of JAX or kzg_tpu.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -66,6 +81,11 @@ SECRET = 1927409816240961209460912649124
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 OUT_DIR = "chiprun_out"
+# the kernels every FK20 multi call runs (the blob's inverse FFT, part 2
+# on the fixed-base tables, the tree sum, the dense G1 FFTs)
+PATH_KERNELS = ("mont_mul", "fr_scale", "fr_butterfly_stage",
+                "g1_fixed_base_mul", "g1_window_table", "g1_fft_stage",
+                "g1_add")
 
 
 def log(*a):
@@ -178,6 +198,7 @@ def plain_path():
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
+    from kzg_tpu_torch.fk20 import toeplitz
     from kzg_tpu_torch.ntt import das, fft_fr
 
     def stage(spec, x, roots, log_half, stride, offset=0):
@@ -198,7 +219,11 @@ def plain_path():
              (g1, "g1_scalar_mul", gk.g1_scalar_mul_plain),
              (g1, "g1_add", gk.g1_add_plain),
              (g1, "g1_double", gk.g1_double_plain),
-             (fft_g1, "g1_glv_butterfly", gk.g1_glv_butterfly_plain)]
+             (fft_g1, "g1_glv_butterfly", gk.g1_glv_butterfly_plain),
+             (fft_g1, "g1_window_table", gk.g1_window_table_plain),
+             (fft_g1, "g1_fft_stage", gk.g1_fft_stage_plain),
+             (toeplitz, "g1_window_table", gk.g1_window_table_plain),
+             (toeplitz, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -222,6 +247,27 @@ def symbol(mangled: str) -> str:
     return "::".join(p for p in parts
                      if not p.startswith(("_GLOBAL__N", "_INTERNAL"))) \
         or mangled
+
+
+def ptxas_report(lib: str, text: str) -> dict:
+    """{"lib:function": registers, stack frame and spill bytes} from the
+    -Xptxas -v log of one library."""
+    import re
+
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = f"{lib}:{symbol(line.split()[-1])}"
+            out.setdefault(fn, {"registers": None, "stack_frame": 0,
+                                "spill_stores": 0, "spill_loads": 0})
+        elif fn and "stack frame" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            out[fn].update(zip(("stack_frame", "spill_stores",
+                                "spill_loads"), nums))
+        elif fn and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -251,15 +297,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from kzg_tpu_torch import build
+    from kzg_tpu_torch.curve import fft_g1 as fft_mod
     from kzg_tpu_torch.curve import g1
     from kzg_tpu_torch.curve import kernels as gk
-    from kzg_tpu_torch.curve.fft_g1 import fft_g1, reverse_bit_order_g1
+    from kzg_tpu_torch.curve.fft_g1 import reverse_bit_order_g1
     from kzg_tpu_torch.curve.msm import horner_windows, window_sums
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
     from kzg_tpu_torch.das.legacy import erasure_code_recover
     from kzg_tpu_torch.das.recovery import recover_poly_from_samples
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
+    from kzg_tpu_torch.fk20 import multi as fk20_multi
+    from kzg_tpu_torch.fk20 import toeplitz
     from kzg_tpu_torch.fk20.multi import FK20MultiSettings
     from kzg_tpu_torch.fk20.single import FK20SingleSettings
     from kzg_tpu_torch.kzg.setup import insecure_kzg_settings_device
@@ -277,15 +326,15 @@ def main() -> int:
     # ---- 1. build and identify ----
     t = time.time()
     logs = build.build_all()
-    log(f"build: {time.time() - t:.1f} s ({len(logs)} libraries compiled)")
+    build_s = time.time() - t
+    log(f"build: {build_s:.1f} s ({len(logs)} libraries compiled)")
+    ptxas = {}
     for name, text in logs.items():
-        fn = "?"
-        for line in text.splitlines():
-            if "Function properties for" in line:
-                fn = symbol(line.split()[-1])
-            elif "registers" in line or "spill" in line:
-                info = line.replace("ptxas info    :", "").strip()
-                log(f"  {name}: {fn}: {info}")
+        ptxas.update(ptxas_report(name, text))
+    for fn, info in ptxas.items():
+        log(f"  {fn}: {info['registers']} registers, {info['stack_frame']} "
+            f"bytes stack frame, {info['spill_stores']} bytes spill stores, "
+            f"{info['spill_loads']} bytes spill loads")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -365,21 +414,85 @@ def main() -> int:
     want = gk.g1_scalar_mul_plain(base, digits)
     check(same(got, want), "g1_scalar_mul differs")
     checks["g1_scalar_mul"] = max_abs_err(got, want)
+    k3_out = got
     aff = g1.to_affine_ints(JacobianPoint(*(c[:8] for c in got)))
     ins = g1.to_affine_ints(JacobianPoint(*(c[:8] for c in base)))
     check(aff == [host_ec.g1_mul(p, s) for p, s in zip(ins, sv[:8])],
           "g1_scalar_mul disagrees with the host oracle")
     log(f"K3 g1_scalar_mul: {n3} lanes bit-exact (incl. infinity, 0, 1, r-1)")
 
+    # the G1 FFT: g1_window_table + g1_fft_stage at 16 points (dense, and
+    # 4 x 4 with the inverse's 1/n folded into stage 2) and at the path's
+    # 128 points (dense); K4 under a forced radix-2 plan at 128 points
     fs13 = FFTSettings(13, dev)
-    pts128 = fp_pts(128)
-    for inverse in (False, True):
-        got = fft_g1(fs13, pts128, inverse)
-        with plain_path():
-            want = fft_g1(fs13, pts128, inverse)
-        check(same(got, want), f"G1 FFT 128 inverse={inverse} differs")
-        checks[f"g1_glv_butterfly_{int(inverse)}"] = max_abs_err(got, want)
-    log("K4 g1_glv_butterfly: whole 128-point G1 FFT fwd+inv bit-exact")
+    checks["g1_fft_stage"] = checks["g1_window_table"] = 0
+    checks["g1_glv_butterfly"] = 0
+    for n_pts, plans in ((16, ((16,), (4, 4))), (128, ((128,), (2,) * 7))):
+        pts_in = fp_pts(n_pts)
+        for inverse in (False, True):
+            dense = None
+            for plan in plans:
+                got = fft_mod._fft_g1_core(pts_in, 13, inverse, plan)
+                with plain_path():
+                    want = fft_mod._fft_g1_core(pts_in, 13, inverse, plan)
+                check(same(got, want), f"G1 FFT {n_pts} plan {plan} "
+                      f"inverse={inverse} differs from its plain version")
+                key = "g1_glv_butterfly" if plan[0] == 2 else "g1_fft_stage"
+                checks[key] = max(checks[key], max_abs_err(got, want))
+                aff = g1.to_affine(got)
+                if dense is None:
+                    dense = aff
+                check(same(aff, dense), f"G1 FFT {n_pts} plan {plan} "
+                      f"inverse={inverse} differs from the dense plan")
+        if n_pts == 128:
+            pts128 = pts_in
+    log("G1 FFT: g1_fft_stage at 16 points (dense, 4 x 4) and 128 (dense), "
+        "fwd+inv, bit-exact; K4 g1_glv_butterfly under the radix-2 plan at "
+        "128 points bit-exact and equal to the dense transform in affine "
+        "form")
+    # 16 points whose sum is zero: output 0 is the point at infinity,
+    # reached by adding a point to its negation, as all-zero words
+    ks16 = random_fr_ints(rng, 15, r)
+    ks16.append(-sum(ks16) % r)
+    zs = g1.mul(g1.generator((16,), dev), fr.from_int(ks16, dev))
+    for plan in ((16,), (4, 4), (2,) * 4):
+        for inverse in (False, True):
+            got = fft_mod._fft_g1_core(zs, 13, inverse, plan)
+            with plain_path():
+                want = fft_mod._fft_g1_core(zs, 13, inverse, plan)
+            check(same(got, want) and not any(bool(c[0].any()) for c in got),
+                  f"G1 FFT 16 plan {plan} inverse={inverse}: the output at "
+                  "infinity differs from the plain version or is not zero")
+            key = "g1_glv_butterfly" if plan[0] == 2 else "g1_fft_stage"
+            checks[key] = max(checks[key], max_abs_err(got, want))
+    log("G1 FFT at 16 points summing to zero: output 0 all-zero words and "
+        "bit-exact on the dense, 4 x 4 and radix-2 plans, fwd+inv")
+    # the window tables and the fixed-base product at 2^10 lanes (the
+    # scalars and edge lanes of K3's check above)
+    n10 = 1 << 10
+    b10 = JacobianPoint(*(c[:n10].contiguous() for c in base))
+    t10 = gk.g1_window_table(b10, 64)
+    check(same(t10, gk.g1_window_table_plain(b10, 64)),
+          "g1_window_table (64 windows) differs")
+    src = torch.randperm(n10, generator=torch.Generator().manual_seed(SEED)
+                         ).to(dev, torch.int32)
+    gt = gk.g1_window_table(b10, 1, src, n10)
+    check(same(gt, gk.g1_window_table_plain(b10, 1, src, n10)),
+          "g1_window_table (gathered) differs")
+    checks["g1_window_table"] = max(max_abs_err(t10, gk.g1_window_table_plain(
+        b10, 64)), max_abs_err(gt, gk.g1_window_table_plain(b10, 1, src,
+                                                             n10)))
+    d10 = digits[:n10].contiguous()
+    got = gk.g1_fixed_base_mul(t10, d10)
+    want = gk.g1_fixed_base_mul_plain(t10, d10)
+    check(same(got, want), "g1_fixed_base_mul differs")
+    checks["g1_fixed_base_mul"] = max_abs_err(got, want)
+    check(same(g1.to_affine(got), g1.to_affine(JacobianPoint(
+        *(c[:n10] for c in k3_out)))),
+        "g1_fixed_base_mul differs from K3 in affine form")
+    log(f"g1_window_table (64 windows, and gathered with 1) and "
+        f"g1_fixed_base_mul: {n10} lanes bit-exact; the product equals K3's "
+        f"in affine form")
 
     # g1_add at the width of the MSM's first tree level (2048 x 64 lanes):
     # random r-torsion points, and the edge lanes 0 P == Q under another
@@ -444,6 +557,8 @@ def main() -> int:
 
     # ---- 4. main path at the PeerDAS shape ----
     n, n2, l = 4096, 8192, 64
+    fk.reset_launches()
+    gk.reset_launches()
     t = time.time()
     ks = insecure_kzg_settings_device(SECRET, n, fs13)
     torch.cuda.synchronize()
@@ -457,8 +572,23 @@ def main() -> int:
     fkm = FK20MultiSettings(ks, n2, l)
     torch.cuda.synchronize()
     setup_s = time.time() - t
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.time()
+    tables = fkm.x_ext_fft_tables
+    torch.cuda.synchronize()
+    table_s = time.time() - t
+    table_bytes = tables.numel() * tables.element_size()
+    table_peak = torch.cuda.max_memory_allocated() - mem0
+    setup_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"CRS (4096 points, K3): {crs_s:.2f} s; FK20 settings "
-        f"(64 x 128-point G1 FFTs, batched): {setup_s:.2f} s")
+        f"(64 x 128-point G1 FFTs, batched): {setup_s:.2f} s; fixed-base "
+        f"tables ({tables.shape[0]} x {tables.shape[1]} bases x 64 windows x "
+        f"8): {table_s:.3f} s, {table_bytes} bytes, peak {table_peak} bytes "
+        f"above the settings")
+    log(f"setup launches: {json.dumps(setup_launches)}")
+    for name in ("g1_scalar_mul", "g1_window_table", "g1_fft_stage"):
+        check(setup_launches[name] > 0, f"{name} was not launched in setup")
 
     blob_ints = random_fr_ints(rng, n, r)
     blob = fr.from_int(blob_ints, dev)
@@ -473,8 +603,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fk20_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"proof path launches: {json.dumps(fk20_launches)}")
-    for name in ("mont_mul", "fr_scale", "fr_butterfly_stage",
-                 "g1_scalar_mul", "g1_glv_butterfly", "g1_add"):
+    for name in PATH_KERNELS:
         check(fk20_launches[name] > 0,
               f"{name} was not launched on the proof path")
     check(proofs.x.shape == (n2 // l, fp.N_WORDS),
@@ -486,14 +615,45 @@ def main() -> int:
         check(eval_poly(coeff_ints, pow(w13, fs13.max_width // n * i, r), r)
               == blob_ints[bitrev(i, n.bit_length() - 1)],
               "blob -> coefficients is wrong")
+    # the plain path builds its own 64-window tables from the part-1
+    # points on g1_window_table's plain version, and runs on them
     with plain_path():
-        plain = fkm.da_using_fk20_multi(coeffs)
+        plain_tables = toeplitz.fixed_base_tables(fkm.x_ext_fft_files)
+    check(same(tables, plain_tables),
+          "the settings' fixed-base tables differ from their plain version")
+    checks["g1_window_table"] = max(checks["g1_window_table"],
+                                    max_abs_err(tables, plain_tables))
+    log(f"g1_window_table: the settings' {tables.shape[0]} x "
+        f"{tables.shape[1]} bases x 64 windows bit-exact")
+    fkm_plain = copy.copy(fkm)
+    fkm_plain.x_ext_fft_tables = plain_tables
+    with plain_path():
+        plain = fkm_plain.da_using_fk20_multi(coeffs)
     got_aff = g1.to_affine_ints(proofs)
     check(got_aff == g1.to_affine_ints(plain),
           "proofs differ from the plain path")
     check(got_aff == oracle_proofs(coeff_ints, n2, l, SECRET, r, host_ec),
           "proofs differ from the host oracle")
     log("proof path: 128 proofs equal the plain path and the host oracle")
+    # the fixed-base product of part 2 at the path's 8192 lanes against its
+    # plain version on the plain tables, and against K3 on the same
+    # points and scalars
+    tcs = torch.stack([fk20_multi.toeplitz_coeffs_step_strided(coeffs, i, l)
+                       for i in range(l)])
+    coeff_fft = fft(fs13, tcs)
+    got = toeplitz.toeplitz_part2(fs13, tcs, tables)
+    with plain_path():
+        want = toeplitz.toeplitz_part2(fs13, tcs, plain_tables)
+    check(same(got, want),
+          "g1_fixed_base_mul differs from its plain version at 8192 lanes")
+    checks["g1_fixed_base_mul"] = max(checks["g1_fixed_base_mul"],
+                                      max_abs_err(got, want))
+    want = g1.mul(fkm.x_ext_fft_files, coeff_fft)
+    check(same(g1.to_affine(got), g1.to_affine(want)),
+          "the fixed-base product differs from K3 at 8192 lanes")
+    del plain_tables, fkm_plain
+    log(f"g1_fixed_base_mul: the path's {l} x {n2 // l} lanes bit-exact "
+        f"against the plain version and equal to K3 (g1.mul) in affine form")
 
     # ---- 5. the producer path at the PeerDAS shape ----
     data = fr.from_int(random_fr_ints(rng, n, r), dev)
@@ -510,8 +670,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"producer path launches: {json.dumps(launches)}")
-    for name, cnt in launches.items():
-        check(cnt > 0 or name == "butterfly",
+    for name in PATH_KERNELS + ("fr_dif_stage", "g1_double"):
+        check(launches[name] > 0,
               f"{name} was not launched on the producer path")
     check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
           "the extension does not keep the evens")
@@ -555,8 +715,7 @@ def main() -> int:
     torch.cuda.synchronize()
     rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"reconstruction path launches: {json.dumps(rec_launches)}")
-    for name in ("mont_mul", "fr_scale", "fr_butterfly_stage",
-                 "g1_scalar_mul", "g1_glv_butterfly", "g1_add"):
+    for name in PATH_KERNELS + ("g1_double",):
         check(rec_launches[name] > 0,
               f"{name} was not launched on the reconstruction path")
     check(len(missing) == n2 // 2 and not same(samples, ext),
@@ -630,9 +789,18 @@ def main() -> int:
     t = time.time()
     ks2 = insecure_kzg_settings_device(SECRET, n2, fs13)
     fks = FK20SingleSettings(ks2, n2)
+    fks.x_ext_fft_tables
     torch.cuda.synchronize()
     single_setup_s = time.time() - t
+    fk.reset_launches()
+    gk.reset_launches()
     sproofs = fks.da_using_fk20(cf[:n])
+    torch.cuda.synchronize()
+    single_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"FK20 single launches: {json.dumps(single_launches)}")
+    for name in ("g1_fixed_base_mul", "g1_window_table", "g1_fft_stage"):
+        check(single_launches[name] > 0,
+              f"{name} was not launched on the FK20 single path")
     check(sproofs.x.shape == (n2, fp.N_WORDS), "FK20 single proof shape")
     spots = sorted(rng.choice(n2, size=8, replace=False).tolist())
     check(g1.to_affine_ints(JacobianPoint(*(c[spots] for c in sproofs)))
@@ -714,12 +882,20 @@ def main() -> int:
         "recovery", lambda: recover_poly_from_samples(fs13, samples, missing),
         recover_ms)
 
-    path_launches = {"proof": fk20_launches, "producer": launches,
-                     "reconstruction": rec_launches}
+    path_launches = {"setup": setup_launches, "proof": fk20_launches,
+                     "producer": launches, "reconstruction": rec_launches,
+                     "fk20_single": single_launches}
     kernels = []
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
-               products, err, reps=5, plain_reps=1):
+               products, err, reps=5, plain_reps=1, chain=None):
+        # the kernel against its plain version at the timed shape, the
+        # plain version first: the Fr stages work in place
+        ref = plain_fn()
+        out = fn()
+        check(same(out, ref),
+              f"{name} differs from its plain version at the timed shape")
+        err = max(err, max_abs_err(out, ref))
         # events, trace, events again: the two event timings bracket the
         # traced one, so a clock that ramps during the window shows
         call_ms = timed(fn, reps)
@@ -734,9 +910,11 @@ def main() -> int:
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
-            "bound_by": by, "library_ms": None})
+            "bound_by": by, "library_ms": None,
+            "latency_ms": None if chain is None else chain * lat_ms})
         timing[name] = {"device_ms": dev_ms, "traced_launches": caught,
-                        "reps": reps, "call_ms": [call_ms, call2_ms]}
+                        "reps": reps, "call_ms": [call_ms, call2_ms],
+                        "chain_products": chain}
         log(f"[{card}] {name}: {ms:.4f} ms on the device ({caught} of "
             f"{reps} launches traced), {call_ms:.4f} then {call2_ms:.4f} ms "
             f"a call (plain {pms:.3f} ms, bound {b:.3g} ms by {by})")
@@ -777,39 +955,151 @@ def main() -> int:
                fs13.max_width // 128),
            nbf * (4 * 32) + half * 32, nbf * (2 * 8 * 8 + 8),
            max(checks["fr_butterfly_stage_0"], checks["fr_butterfly_stage_1"]))
-    # K3 at the Toeplitz pointwise product: 64 x 128 lanes
-    pts = fkm.x_ext_fft_files
-    pts = JacobianPoint(*(c.reshape(-1, 12).contiguous() for c in pts))
+    # the product's dependent latency: one K3 lane is one thread's chain
+    # of Fp products (jac_to_proj 3, table 7 x 12, 63 x 4 doublings of 8,
+    # 12 per nonzero digit, store 3), alone on the card
+    one = JacobianPoint(*(c[3:4].contiguous() for c in base))
+    d1l = fr.scalar_windows_signed(fr.from_int([r - 12345], dev))
+    chain1 = 3 + 7 * 12 + 63 * 4 * 8 + 12 * int((d1l != 0).sum()) + 3
+    lane_fn = (lambda: gk.g1_scalar_mul(one, d1l))
+    lane_ms, _ = kernel_ms(lane_fn, "scalar_mul_kernel", 5)
+    if lane_ms is None:     # the trace caught no launch: events instead
+        lane_ms = timed(lane_fn, 5)
+    lat_ms = lane_ms / chain1
+    log(f"[{card}] Fp product dependent latency: one K3 lane "
+        f"{lane_ms:.4f} ms / {chain1} products = {lat_ms * 1e6:.1f} ns")
+
+    def ladder_chain(dig, phi_rows: bool):
+        """Products on the longest thread of a ladder launch: from the top
+        nonzero window down, 4 doublings a window, 12 an addition (13 on
+        the phi row)."""
+        d = dig.reshape(dig.shape[0], -1, dig.shape[-1])
+        nz = d != 0
+        any_nz = nz.any(1)
+        w = torch.arange(d.shape[-1], device=d.device)
+        top = torch.where(any_nz, w, -1).max(-1).values.clamp(min=0)
+        adds = nz[:, 0].sum(-1) * 12
+        if phi_rows:
+            adds = adds + nz[:, 1].sum(-1) * 13
+        return int((top * 32 + adds).max())
+
+    # K3 (old route of part 2) at the Toeplitz pointwise product, 64 x 128
+    # lanes, and the fixed-base product that replaces it on the same lanes
+    pts = JacobianPoint(*(c.reshape(-1, 12).contiguous()
+                          for c in fkm.x_ext_fft_files))
+    tbl = fkm.x_ext_fft_tables.reshape(-1, 64, 8, 36)
     n_pts = pts.x.shape[0]
     dig = fr.scalar_windows_signed(
         fr.from_int(random_fr_ints(rng, n_pts, r), dev))
     nnz = int((dig != 0).sum())
     muls3 = n_pts * (3 + 7 * 12 + 64 * 4 * 8 + 3) + 12 * nnz
+    k3_bytes = n_pts * (6 * 48 + 64 * 4)
+    turns = {}
+
+    def in_turns(key, old_fn, new_fn, reps):
+        """old, new, new, old with CUDA events: both means, in one run."""
+        o1, n1, n2_, o2 = (timed(f, reps) for f in (old_fn, new_fn, new_fn,
+                                                      old_fn))
+        turns[key] = {"old_ms": [o1, o2], "new_ms": [n1, n2_]}
+        log(f"[{card}] in turns, {key}: old {o1:.4f} / {o2:.4f} ms, new "
+            f"{n1:.4f} / {n2_:.4f} ms")
+
+    in_turns("K3 g1_scalar_mul vs g1_fixed_base_mul, 8192 lanes",
+             lambda: gk.g1_scalar_mul(pts, dig),
+             lambda: gk.g1_fixed_base_mul(tbl, dig), 3)
     record("g1_scalar_mul", "scalar_mul_kernel",
            "kzg_tpu_torch/csrc/g1_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:473",
            lambda: gk.g1_scalar_mul(pts, dig),
            lambda: gk.g1_scalar_mul_plain(pts, dig),
-           n_pts * (6 * 48 + 64 * 4), muls3 * 300, checks["g1_scalar_mul"],
-           reps=3)
-    # K4 at one stage of the 128-point proof FFT: 64 lanes, last stage
-    from kzg_tpu_torch.curve.fft_g1 import _stage_digits
+           k3_bytes, muls3 * 300, checks["g1_scalar_mul"], reps=3,
+           chain=3 + 84 + ladder_chain(dig, False) + 3)
+    # the fixed-base product's own work, given its tables: one 144-byte
+    # table entry read and one addition (12 products) a nonzero digit,
+    # the digits read, the Jacobian output (3 products) written
+    fixed_chain = 12 * int((dig.reshape(-1, 8, 8) != 0).sum(-1).max()) \
+        + 3 * 12 + 3
+    record("g1_fixed_base_mul", "fixed_base_mul_kernel",
+           "kzg_tpu_torch/csrc/g1_table_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:473",
+           lambda: gk.g1_fixed_base_mul(tbl, dig),
+           lambda: gk.g1_fixed_base_mul_plain(tbl, dig),
+           nnz * 144 + n_pts * (64 * 4 + 3 * 48), (12 * nnz + 3 * n_pts) * 300,
+           checks["g1_fixed_base_mul"], chain=fixed_chain)
+    # beside it, the bound of K3's function (the TPU kernel's work: 8192
+    # ladders of 64 windows), for comparison with the route it replaces
+    kernels[-1]["function_bound_ms"] = bound_ms(k3_bytes, muls3 * 300)[0]
+
+    # the G1 FFT at the path's 128 points: K4 at one radix-2 stage (64
+    # lanes, the last), and the dense stage (one window_table and one
+    # fft_stage launch) that replaces the 7 (8 inverse) K4 launches.
+    # Both are held to the radix-2 transform's work: 7 x 64 GLV ladders.
     k2 = n2 // l
-    d1n, d2n = _stage_digits(13, k2, False, None)[0][-1]
+    h128 = JacobianPoint(*(c[0].contiguous() for c in fkm.x_ext_fft_files))
+    radix2 = (2,) * (k2.bit_length() - 1)
+    bf_stages = fft_mod._plan_host(13, k2, False, radix2)[0]
+    _, d1n, d2n = bf_stages[-1]
     d1 = torch.from_numpy(d1n).to(dev)
     d2 = torch.from_numpy(d2n).to(dev)
     A = JacobianPoint(*(c[:k2 // 2].contiguous() for c in pts))
     B = JacobianPoint(*(c[k2 // 2:k2].contiguous() for c in pts))
-    nz1, nz2 = int(np.count_nonzero(d1n)), int(np.count_nonzero(d2n))
-    muls4 = k2 // 2 * (3 + 7 * 12 + 33 * 4 * 8 + 3 + 2 * 12 + 2 * 3) \
-        + 12 * nz1 + 13 * nz2
+
+    def bf_products(d1a, d2a):
+        return d1a.shape[0] * (3 + 7 * 12 + 33 * 4 * 8 + 3 + 2 * 12
+                               + 2 * 3) + 12 * int(np.count_nonzero(d1a)) \
+            + 13 * int(np.count_nonzero(d2a))
+
+    muls4 = bf_products(d1n, d2n)
+    muls_fft = sum(bf_products(st[1], st[2]) for st in bf_stages)
+    bf_chain = 3 + 84 + ladder_chain(torch.stack(
+        (d1, d2), 1), True) + 3 + 2 * (12 + 3)
+    in_turns("K4 radix-2 plan (7 launches) vs dense stage, 128-point FFT",
+             lambda: fft_mod._fft_g1_core(h128, 13, False, radix2),
+             lambda: fft_mod._fft_g1_core(h128, 13, False, (k2,)), 2)
     record("g1_glv_butterfly", "glv_butterfly_kernel",
            "kzg_tpu_torch/csrc/g1_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:526",
            lambda: gk.g1_glv_butterfly(A, B, d1, d2),
            lambda: gk.g1_glv_butterfly_plain(A, B, d1, d2),
            k2 // 2 * (12 * 48 + 2 * 33 * 4), muls4 * 300,
-           max(checks["g1_glv_butterfly_0"], checks["g1_glv_butterfly_1"]))
+           checks["g1_glv_butterfly"], chain=bf_chain)
+    dense = fft_mod._plan_device(13, k2, False, (k2,), dev)[0][0]
+    _, _, src128, dst128, dig128 = dense
+    flat128 = JacobianPoint(*(c.contiguous() for c in h128))
+    tb128 = gk.g1_window_table(flat128, 1, src128, k2)
+    record("g1_window_table", "window_table_kernel",
+           "kzg_tpu_torch/csrc/g1_table_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:526",
+           lambda: gk.g1_window_table(flat128, 1, src128, k2),
+           lambda: gk.g1_window_table_plain(flat128, 1, src128, k2),
+           k2 * (3 * 48 + 8 * 144 + 4), k2 * (3 + 7 * 12) * 300,
+           checks["g1_window_table"], chain=3 + 7 * 12)
+    stage_digits = dig128.reshape(-1, 2, 33)
+    record("g1_fft_stage", "fft_stage_kernel",
+           "kzg_tpu_torch/csrc/g1_fft_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:526",
+           lambda: gk.g1_fft_stage(tb128, dig128, dst128, k2, k2),
+           lambda: gk.g1_fft_stage_plain(tb128, dig128, dst128, k2, k2),
+           k2 * 2 * 3 * 48, muls_fft * 300, checks["g1_fft_stage"],
+           reps=3, chain=ladder_chain(stage_digits, True) + 7 * 12 + 3)
+
+    # the 8192-point G1 FFT (FK20 single's transforms) under radix plans:
+    # the whole transform with CUDA events, each launch from a trace
+    h8k = JacobianPoint(*(c.contiguous() for c in fks.x_ext_fft))
+    plans = {}
+    for plan in ((2,) * (n2.bit_length() - 1), fft_mod.mixed_plan(n2, 4),
+                 fft_mod.mixed_plan(n2, 8), fft_mod.mixed_plan(n2, 16),
+                 fft_mod.mixed_plan(n2, 32), fft_mod.mixed_plan(n2, 128)):
+        fn = (lambda p=plan: fft_mod._fft_g1_core(h8k, 13, False, p))
+        total = timed(fn, 1)
+        spans = [(k, (e - s_) / 1e3) for nm, s_, e in device_events(fn)
+                 for k in ("glv_butterfly", "window_table", "fft_stage")
+                 if f"{k}_kernel" in nm]
+        plans[str(plan)] = {"ms": total, "launches": [
+            {"kernel": k, "ms": t} for k, t in spans]}
+        log(f"[{card}] G1 FFT 8192 plan {plan}: {total:.3f} ms; launches "
+            + ", ".join(f"{k} {t:.3f}" for k, t in spans))
+    log(f"default plan at 8192: {fft_mod.default_plan(n2)}")
 
     # g1_add at the MSM's first tree level, 2^17 lanes (the edge lanes
     # above; a lane's products are counted by the branch it takes)
@@ -817,14 +1107,15 @@ def main() -> int:
            "kzg_tpu_torch/csrc/g1_point_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:373",
            lambda: gk.g1_add(P, Q), lambda: gk.g1_add_plain(P, Q),
-           n5 * 9 * 48, add_products * 300, checks["g1_add"])
+           n5 * 9 * 48, add_products * 300, checks["g1_add"], chain=16)
     # g1_double at Horner's width: one lane per commitment
     P1 = JacobianPoint(*(c[7:8] for c in P))
     record("g1_double", "g1_double_kernel",
            "kzg_tpu_torch/csrc/g1_point_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:394",
            lambda: gk.g1_double(P1), lambda: gk.g1_double_plain(P1),
-           6 * 48, 7 * 300, checks["g1_double"], reps=20, plain_reps=5)
+           6 * 48, 7 * 300, checks["g1_double"], reps=20, plain_reps=5,
+           chain=7)
     # fr_dif_stage at the extension's first down-sweep level: 2048
     # butterflies over one row of 4096
     x1 = xd[:1].clone()
@@ -858,7 +1149,12 @@ def main() -> int:
               "horner_ms": horner_ms, "recover_ms": recover_ms,
               "recover_to_proofs_ms": recover_to_proofs_ms,
               "fk20_single_ms": fk20_single_ms,
-              "fk20_single_setup_s": single_setup_s,
+              "fk20_single_setup_s": single_setup_s, "build_s": build_s,
+              "ptxas": ptxas, "fixed_base_table_s": table_s,
+              "fixed_base_table_bytes": table_bytes,
+              "fixed_base_table_peak_bytes": table_peak,
+              "fp_product_latency_ms": lat_ms, "in_turns": turns,
+              "g1_fft_8192_plans": plans,
               "proof_multi_s": proof_multi_s, "legacy_1024_s": legacy_s,
               "launches": path_launches, "kernels": kernels,
               "kernel_timing": timing, "fk20_profile": profile,

@@ -21,7 +21,8 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
-SOURCES = ("fr_kernels", "g1_kernels", "g1_point_kernels")
+SOURCES = ("fr_kernels", "g1_kernels", "g1_fft_kernels", "g1_table_kernels",
+           "g1_point_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,13 @@ SIGNATURES = {
     "g1_kernels": {
         "kzg_g1_scalar_mul": (_P,) * 7 + (_I, _I, _P),
         "kzg_g1_glv_butterfly": (_P,) * 14 + (_I, _I, _P),
+    },
+    "g1_fft_kernels": {
+        "kzg_g1_fft_stage": (_P,) * 6 + (_I,) * 5 + (_P,),
+    },
+    "g1_table_kernels": {
+        "kzg_g1_window_table": (_P,) * 5 + (_I, _I, _I, _P),
+        "kzg_g1_fixed_base_mul": (_P,) * 5 + (_I, _P),
     },
     "g1_point_kernels": {
         "kzg_g1_add": (_P,) * 9 + (_I, _P),

@@ -1,13 +1,23 @@
 // Montgomery arithmetic over N little-endian 32-bit words, one field
-// element per thread (shared by fr_kernels.cu and g1_kernels.cu).
+// element per thread (shared by fr_kernels.cu and the G1 kernels).
 //
 // Fr: N = 8, R = 2^256.  Fp: N = 12, R = 2^384.  The same R as the JAX
 // package's 16-bit limbs, so a value here is the same integer.
 //
 // Every operation returns a canonical value (< m): the port keeps no lazy
-// bounds, so the final conditional subtract is always done. Products use
-// CIOS (coarsely integrated operand scanning) with 64-bit accumulators:
-// (2^32-1)^2 + 2(2^32-1) = 2^64-1, so no step overflows.
+// bounds, so the final conditional subtract is always done. The canonical
+// Montgomery product is unique, so any correct schedule gives the same
+// words. Products use CIOS (coarsely integrated operand scanning) on PTX
+// carry chains, with the accumulator split in two (the even and the odd
+// words' partial products, as in supranational's sppark): each row runs
+// two independent chains of N multiply-adds for a * b_i, then two for
+// q * m, so a product's dependent path is about half that of one
+// accumulator. The shift by a word is folded into the next row. The
+// running value t stays below (2^33 + 2) m < 2^(32N+32) for both moduli,
+// which is why the odd half may drop its top carry (it is always 0).
+// Add and sub are add.cc/sub.cc chains. Each PTX instruction is its own
+// volatile asm statement: the compiler keeps their order, and nothing it
+// emits between them touches the carry flag.
 #pragma once
 #include <cstdint>
 
@@ -41,18 +51,47 @@ struct Field<12> {
   }
 };
 
+namespace ptx {
+
+#define KZG_PTX2(name, op)                                              \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) {    \
+    uint32_t r;                                                         \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));         \
+    return r;                                                           \
+  }
+#define KZG_PTX3(name, op)                                              \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b,      \
+                                           uint32_t c) {                \
+    uint32_t r;                                                         \
+    asm volatile(op " %0, %1, %2, %3;"                                  \
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));                   \
+    return r;                                                           \
+  }
+KZG_PTX2(add_cc, "add.cc.u32")
+KZG_PTX2(addc_cc, "addc.cc.u32")
+KZG_PTX2(addc, "addc.u32")
+KZG_PTX2(sub_cc, "sub.cc.u32")
+KZG_PTX2(subc_cc, "subc.cc.u32")
+KZG_PTX2(subc, "subc.u32")
+KZG_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+KZG_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+KZG_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+KZG_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+KZG_PTX3(madc_hi, "madc.hi.u32")
+#undef KZG_PTX2
+#undef KZG_PTX3
+
+}  // namespace ptx
+
 // r = t - m if t >= m (or if a carry `hi` says t >= R), else t.
 template <int N>
 __device__ __forceinline__ void cond_sub(uint32_t r[N], const uint32_t t[N],
                                          uint32_t hi) {
   uint32_t d[N];
-  int64_t borrow = 0;
+  d[0] = ptx::sub_cc(t[0], Field<N>::m(0));
 #pragma unroll
-  for (int i = 0; i < N; i++) {
-    int64_t x = (int64_t)t[i] - Field<N>::m(i) + borrow;
-    d[i] = (uint32_t)x;
-    borrow = x >> 32;  // 0 or -1
-  }
+  for (int i = 1; i < N; i++) d[i] = ptx::subc_cc(t[i], Field<N>::m(i));
+  const uint32_t borrow = ptx::subc(0, 0);  // 0, or ~0 if t < m
   const bool take = hi != 0 || borrow == 0;
 #pragma unroll
   for (int i = 0; i < N; i++) r[i] = take ? d[i] : t[i];
@@ -62,35 +101,26 @@ template <int N>
 __device__ __forceinline__ void add(uint32_t r[N], const uint32_t a[N],
                                     const uint32_t b[N]) {
   uint32_t s[N];
-  uint64_t c = 0;
+  s[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < N; i++) {
-    c += (uint64_t)a[i] + b[i];
-    s[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  cond_sub<N>(r, s, (uint32_t)c);
+  for (int i = 1; i < N; i++) s[i] = ptx::addc_cc(a[i], b[i]);
+  const uint32_t carry = ptx::addc(0, 0);
+  cond_sub<N>(r, s, carry);
 }
 
 template <int N>
 __device__ __forceinline__ void sub(uint32_t r[N], const uint32_t a[N],
                                     const uint32_t b[N]) {
   uint32_t d[N];
-  int64_t borrow = 0;
+  d[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int i = 0; i < N; i++) {
-    int64_t x = (int64_t)a[i] - b[i] + borrow;
-    d[i] = (uint32_t)x;
-    borrow = x >> 32;
-  }
-  const uint32_t mask = borrow ? 0xffffffffu : 0u;  // a < b: add m back
-  uint64_t c = 0;
+  for (int i = 1; i < N; i++) d[i] = ptx::subc_cc(a[i], b[i]);
+  const uint32_t mask = ptx::subc(0, 0);  // a < b: add m back
+  r[0] = ptx::add_cc(d[0], Field<N>::m(0) & mask);
 #pragma unroll
-  for (int i = 0; i < N; i++) {
-    c += (uint64_t)d[i] + (Field<N>::m(i) & mask);
-    r[i] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int i = 1; i < N - 1; i++)
+    r[i] = ptx::addc_cc(d[i], Field<N>::m(i) & mask);
+  r[N - 1] = ptx::addc(d[N - 1], Field<N>::m(N - 1) & mask);
 }
 
 template <int N>
@@ -101,36 +131,85 @@ __device__ __forceinline__ void neg(uint32_t r[N], const uint32_t a[N]) {
   sub<N>(r, z, a);
 }
 
+// acc[j], acc[j+1] += lo, hi of y[j + off] * x for even j < N: one fresh
+// carry chain over acc; its carry-out is left in the flag.
+template <int N>
+__device__ __forceinline__ void cmad(uint32_t acc[N], const uint32_t y[N],
+                                     int off, uint32_t x) {
+  acc[0] = ptx::mad_lo_cc(y[off], x, acc[0]);
+  acc[1] = ptx::madc_hi_cc(y[off], x, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = ptx::madc_lo_cc(y[j + off], x, acc[j]);
+    acc[j + 1] = ptx::madc_hi_cc(y[j + off], x, acc[j + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cmad_mod(uint32_t acc[N], int off,
+                                         uint32_t q) {
+  acc[0] = ptx::mad_lo_cc(Field<N>::m(off), q, acc[0]);
+  acc[1] = ptx::madc_hi_cc(Field<N>::m(off), q, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = ptx::madc_lo_cc(Field<N>::m(j + off), q, acc[j]);
+    acc[j + 1] = ptx::madc_hi_cc(Field<N>::m(j + off), q, acc[j + 1]);
+  }
+}
+
+// One CIOS row on the split accumulator t = P + Q 2^32 (P holds the even
+// words' partial products, Q the odd ones', one word up): t += a x, then
+// t += q m with q = t[0] n0, so that P[0] = 0. The two chains of each
+// step are independent. The shift by one word is left to the next row,
+// which swaps the roles: there the old Q is the new P (P[0] += old P[1])
+// and the old P, two words down, the new Q.
+template <int N>
+__device__ __forceinline__ void mul_row(uint32_t P[N], uint32_t Q[N],
+                                        const uint32_t a[N], uint32_t x,
+                                        bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      P[j] = a[j] * x;
+      P[j + 1] = __umulhi(a[j], x);
+      Q[j] = a[j + 1] * x;
+      Q[j + 1] = __umulhi(a[j + 1], x);
+    }
+  } else {
+    P[0] = ptx::add_cc(P[0], Q[1]);
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+      Q[j] = ptx::madc_lo_cc(a[j + 1], x, Q[j + 2]);
+      Q[j + 1] = ptx::madc_hi_cc(a[j + 1], x, Q[j + 3]);
+    }
+    Q[N - 2] = ptx::madc_lo_cc(a[N - 1], x, 0);
+    Q[N - 1] = ptx::madc_hi(a[N - 1], x, 0);
+    cmad<N>(P, a, 0, x);
+    Q[N - 1] = ptx::addc(Q[N - 1], 0);
+  }
+  const uint32_t q = P[0] * Field<N>::n0;
+  cmad_mod<N>(Q, 1, q);   // no carry-out: t stays below 2^(32N+32)
+  cmad_mod<N>(P, 0, q);
+  Q[N - 1] = ptx::addc(Q[N - 1], 0);
+}
+
 // REDC(a*b) = a*b*R^-1 mod m, canonical. r may alias a or b.
 template <int N>
 __device__ __forceinline__ void mul(uint32_t r[N], const uint32_t a[N],
                                     const uint32_t b[N]) {
-  uint32_t t[N + 2];
+  uint32_t E[N], O[N];
 #pragma unroll
-  for (int i = 0; i < N + 2; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < N; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; j++) {
-      c = (uint64_t)a[j] * b[i] + t[j] + (c >> 32);
-      t[j] = (uint32_t)c;
-    }
-    c = (uint64_t)t[N] + (c >> 32);
-    t[N] = (uint32_t)c;
-    t[N + 1] = (uint32_t)(c >> 32);
-    const uint32_t q = t[0] * Field<N>::n0;
-    c = (uint64_t)q * Field<N>::m(0) + t[0];
-#pragma unroll
-    for (int j = 1; j < N; j++) {
-      c = (uint64_t)q * Field<N>::m(j) + t[j] + (c >> 32);
-      t[j - 1] = (uint32_t)c;
-    }
-    c = (uint64_t)t[N] + (c >> 32);
-    t[N - 1] = (uint32_t)c;
-    t[N] = t[N + 1] + (uint32_t)(c >> 32);
+  for (int i = 0; i < N; i += 2) {
+    mul_row<N>(E, O, a, b[i], i == 0);
+    mul_row<N>(O, E, a, b[i + 1], false);
   }
-  cond_sub<N>(r, t, t[N]);
+  // t = O / 2^32 + E (O[0] = 0): add the two halves
+  uint32_t t[N];
+  t[0] = ptx::add_cc(E[0], O[1]);
+#pragma unroll
+  for (int k = 1; k < N - 1; k++) t[k] = ptx::addc_cc(E[k], O[k + 1]);
+  t[N - 1] = ptx::addc_cc(E[N - 1], 0);
+  cond_sub<N>(r, t, ptx::addc(0, 0));
 }
 
 template <int N>

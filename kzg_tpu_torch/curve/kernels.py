@@ -1,17 +1,22 @@
 """G1 ladder kernels K3 (`g1_scalar_mul`) and K4 (`g1_glv_butterfly`),
+the G1 FFT stage kernel `g1_fft_stage`, the window tables
+(`g1_window_table`) and the fixed-base product (`g1_fixed_base_mul`),
 and the point kernels `g1_add` and `g1_double`, with their plain PyTorch
 versions.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel (csrc/g1_kernels.cu, csrc/g1_point_kernels.cu)
-or raises. Each launch adds one to the wrapper's entry in `LAUNCHES`.
+tensors it launches the kernel (csrc/g1_kernels.cu, g1_fft_kernels.cu,
+g1_table_kernels.cu, g1_point_kernels.cu) or raises. Each launch adds one
+to the wrapper's entry in `LAUNCHES`.
 
-Both ladders run the complete Renes-Costello-Batina projective formulas
+The ladders run the complete Renes-Costello-Batina projective formulas
 (a = 0, b3 = 12) in the operation order of kzg_tpu/curve/pallas_g1.py,
 with Jacobian points in and out. Infinity enters as any Z == 0 and leaves
-as all-zero words. The plain versions run the same formulas on the
-redundant int64 engine (field/limbs.py) and reduce once at the end, so
-their output words equal the kernels'.
+as all-zero words. Window tables hold projective points as canonical
+words, (..., W, 8, 36): entry m of window w of base B is (m+1) 16^w B,
+x, y and z of 12 words each. The plain versions run the same formulas in
+the same order on the redundant int64 engine (field/limbs.py) and reduce
+once at the end, so their output words equal the kernels'.
 
 `g1_add` and `g1_double` are the complete Jacobian formulas of
 kzg_tpu/curve/pallas_g1.py (add-2007-bl with its selects, dbl-2009-l), on
@@ -33,9 +38,15 @@ from .glv import GLV_BETA
 from .weierstrass import JacobianPoint
 
 LAUNCHES = {"g1_scalar_mul": 0, "g1_glv_butterfly": 0, "g1_add": 0,
-            "g1_double": 0}
+            "g1_double": 0, "g1_window_table": 0, "g1_fft_stage": 0,
+            "g1_fixed_base_mul": 0}
 
 NP = fp.N_WORDS
+PW = 3 * NP         # words of a projective point
+FIXED_WINDOWS = 64  # signed 4-bit windows of an Fr scalar
+FIXED_PARTS = 8     # threads (window groups) per lane of the fixed-base sum
+STAGE_THREADS = 128
+TABLE_SMEM_WORDS = 8 * PW + 4   # a staged [1..8] table with its pad
 
 
 def reset_launches() -> None:
@@ -101,12 +112,28 @@ class _Plain:
         return (self.M(x, z), torch.where(inf, self.one, y),
                 self.M(self.M(z, z), z))
 
+    def words(self, v):
+        """Lazy limbs -> canonical words."""
+        return limbs.limbs_to_words(limbs.canon_wide(self.c, v))
+
+    def tree_sum(self, acc, r: int):
+        """(x, y, z) of (..., r, L) -> the sum over r in the kernels' fixed
+        order: item j += item j + s for s = r/2, ..., 1."""
+        s = r >> 1
+        while s:
+            head = tuple(c[..., :s, :] for c in acc)
+            tail = tuple(c[..., s:2 * s, :] for c in acc)
+            acc = self.proj_add(head, tail)
+            s >>= 1
+        return tuple(c[..., 0, :] for c in acc)
+
     def to_jac(self, p) -> JacobianPoint:
-        """Projective -> canonical Jacobian words (XZ, YZ^2, Z)."""
+        """Projective -> canonical Jacobian words (XZ, YZ^2, Z). Z may be
+        a sum of two lazy products, up to 4m, so every coordinate takes
+        the wide reduction (at infinity Z is 0, not m)."""
         x, y, z = p
-        out = (self.M(x, z), self.M(y, self.M(z, z)), z)
-        return JacobianPoint(*(limbs.limbs_to_words(limbs.canon(self.c, v))
-                               for v in out))
+        return JacobianPoint(*(self.words(v) for v in
+                               (self.M(x, z), self.M(y, self.M(z, z)), z)))
 
     def identity(self, like):
         zero = torch.zeros_like(like)
@@ -134,8 +161,11 @@ class _Plain:
 
     def ladder(self, base, digit_rows):
         """sum over (digits, phi) rows of the Horner ladder on `base`."""
-        tbl = self.table(base)
-        acc = self.identity(base[0])
+        return self.ladder_on(self.table(base), digit_rows)
+
+    def ladder_on(self, tbl, digit_rows):
+        """The Horner ladder on a (8, 3, n, L) table of [1..8]P."""
+        acc = self.identity(tbl[0, 0])
         n_windows = digit_rows[0][0].shape[-1]
         for w in range(n_windows - 1, -1, -1):
             for _ in range(4):
@@ -176,6 +206,81 @@ def g1_glv_butterfly_plain(a: JacobianPoint, b: JacobianPoint, d1, d2):
     lo = pl.to_jac(pl.proj_add(ap, t))
     hi = pl.to_jac(pl.proj_add(ap, (t[0], -t[1], t[2])))
     return _shaped(lo, shape), _shaped(hi, shape)
+
+
+def _table_words(pl: _Plain, tbl) -> torch.Tensor:
+    """(8, 3, n, L) lazy limbs -> (n, 8, 36) canonical words."""
+    return pl.words(tbl).permute(2, 0, 1, 3).reshape(tbl.shape[2], 8, PW)
+
+
+def _table_limbs(tables: torch.Tensor) -> torch.Tensor:
+    """(n, 8, 36) words -> (8, 3, n, L) limbs."""
+    n = tables.shape[0]
+    v = limbs.words_to_limbs(tables.reshape(n, 8, 3, NP))
+    return v.permute(1, 2, 0, 3)
+
+
+def g1_window_table_plain(p: JacobianPoint, n_windows: int, src=None,
+                          src_n: int = 1) -> torch.Tensor:
+    pl = _plain(p.x.device)
+    flat = _flat(p)
+    idx = torch.arange(flat.x.shape[0], device=p.x.device)
+    if src is not None:
+        idx = idx // src_n * src_n + src.long()[idx % src_n]
+    base = pl.jac_to_proj(JacobianPoint(*(c[idx] for c in flat)))
+    out = []
+    for w in range(n_windows):
+        out.append(_table_words(pl, pl.table(base)))
+        if w + 1 < n_windows:
+            for _ in range(4):
+                base = pl.proj_double(base)
+    return torch.stack(out, dim=1)
+
+
+def g1_fft_stage_plain(tables: torch.Tensor, digits: torch.Tensor, dst,
+                       n: int, r: int) -> JacobianPoint:
+    pl = _plain(tables.device)
+    n_groups = tables.shape[0] // r
+    per = n // r
+    dev = tables.device
+    g = torch.arange(n_groups, device=dev).repeat_interleave(r * r)
+    kj = torch.arange(r * r, device=dev).repeat(n_groups)
+    k, j = kj // r, kj % r
+    q = (g % per) % digits.shape[0]
+    d = digits.long()[q, k, j]                           # (terms, 2, 33)
+    tbl = _table_limbs(tables.reshape(-1, 8, PW)[g * r + j])
+    acc = pl.ladder_on(tbl, [(d[:, 0], False), (d[:, 1], True)])
+    acc = pl.tree_sum(tuple(c.reshape(n_groups * r, r, -1) for c in acc), r)
+    outs = pl.to_jac(acc)
+    gk = torch.arange(n_groups * r, device=dev)
+    g, k = gk // r, gk % r
+    at = g // per * n + dst.long()[(g % per) * r + k]
+    res = JacobianPoint(*(torch.empty_like(c) for c in outs))
+    for o, c in zip(res, outs):
+        o[at] = c
+    return res
+
+
+def g1_fixed_base_mul_plain(tables: torch.Tensor, digits) -> JacobianPoint:
+    pl = _plain(tables.device)
+    n = digits.shape[0]
+    lanes = torch.arange(n, device=digits.device)
+    step = FIXED_WINDOWS // FIXED_PARTS
+    acc = None
+    for w in range(step):    # window part * step + w of each part at once
+        win = torch.arange(FIXED_PARTS, device=digits.device) * step + w
+        d = digits.long()[:, win]                         # (n, parts)
+        idx = (d.abs() - 1).clamp(min=0)
+        ent = tables[lanes[:, None], win[None], idx]       # (n, parts, 36)
+        ent = limbs.words_to_limbs(ent.reshape(n, FIXED_PARTS, 3, NP))
+        sx, sy, sz = ent.unbind(2)
+        sy = torch.where((d < 0).unsqueeze(-1), -sy, sy)
+        if acc is None:
+            acc = pl.identity(sx)
+        added = pl.proj_add(acc, (sx, sy, sz))
+        keep = (d == 0).unsqueeze(-1)
+        acc = tuple(torch.where(keep, a, b) for a, b in zip(acc, added))
+    return pl.to_jac(pl.tree_sum(acc, FIXED_PARTS))
 
 
 # ---- plain versions of the point kernels: Jacobian formulas, lazy ----
@@ -304,6 +409,110 @@ def g1_glv_butterfly(a: JacobianPoint, b: JacobianPoint, d1, d2):
             d1.data_ptr(), d2.data_ptr(), d1.shape[-1], n, stream_of(a.x)),
             "g1_glv_butterfly")
     return lo, hi
+
+
+def g1_window_table(p: JacobianPoint, n_windows: int, src=None,
+                    src_n: int = 1) -> torch.Tensor:
+    """Window tables, (n, n_windows, 8, 36) int32: entry m of window w of
+    point i is (m+1) 16^w P as projective words, P = p[(i // src_n) src_n
+    + src[i % src_n]] (P = p[i] without src). n_windows = 1 gives the
+    [1..8]P tables of a G1 FFT stage, 64 the fixed-base tables of the FK20
+    settings."""
+    if p.x.device.type == "cpu":
+        return g1_window_table_plain(p, n_windows, src, src_n)
+    n = p.x.numel() // NP
+    _check_points("g1_window_table", n, p)
+    if src is not None:
+        if src.device != p.x.device or src.dtype != torch.int32 \
+                or src.numel() != src_n or n % src_n:
+            raise ValueError("g1_window_table: src must be int32 (src_n,) "
+                             "on the points' device, src_n dividing n")
+    out = torch.empty((n, n_windows, 8, PW), dtype=torch.int32,
+                      device=p.x.device)
+    if n:
+        lib = build.library("g1_table_kernels")
+        LAUNCHES["g1_window_table"] += 1
+        build.check(lib.kzg_g1_window_table(
+            out.data_ptr(), *(c.data_ptr() for c in p),
+            None if src is None else src.data_ptr(), src_n, n_windows, n,
+            stream_of(p.x)), "g1_window_table")
+    return out
+
+
+def stage_smem_bytes(r: int) -> int:
+    """Dynamic shared memory of a radix-r g1_fft_stage block: its staged
+    tables (r, or 128/r for the blocks that hold several groups), or its
+    128 partial points where they are more."""
+    tables = max(r, STAGE_THREADS // r) * TABLE_SMEM_WORDS
+    return 4 * max(tables, STAGE_THREADS * PW)
+
+
+def g1_fft_stage(tables: torch.Tensor, digits: torch.Tensor, dst, n: int,
+                 r: int) -> JacobianPoint:
+    """One radix-r G1 FFT stage over groups of r inputs:
+        out[t n + dst[gl r + k]] = sum_j s[gl % S, k, j] in[g r + j]
+    for group g = t (n/r) + gl of transform t, from the inputs' [1..8]
+    tables (g1_window_table, (groups r, 1, 8, 36)) and int8 GLV digit
+    rows (S, r, r, 2, 33) of the scalars s (curve/glv.py); dst int32
+    (n,). Inputs must lie in the r-torsion subgroup (replaces, for the G1
+    FFT, the route of kzg_tpu/curve/pallas_g1.py::_scalar_mul_glv_fn)."""
+    if tables.device.type == "cpu":
+        return g1_fft_stage_plain(tables, digits, dst, n, r)
+    check_words(tables, PW, "g1_fft_stage")
+    log_r = r.bit_length() - 1
+    if r < 2 or r & (r - 1) or r > STAGE_THREADS or n % r:
+        raise ValueError("g1_fft_stage: r must be a power of two in "
+                         f"[2, {STAGE_THREADS}] dividing n")
+    n_pts = tables.numel() // (8 * PW)
+    if n_pts % n:
+        raise ValueError("g1_fft_stage: tables are not whole transforms")
+    if digits.dtype != torch.int8 or digits.device != tables.device or \
+            tuple(digits.shape[1:]) != (r, r, 2, 33) or \
+            not digits.is_contiguous():
+        raise ValueError("g1_fft_stage: digits must be contiguous int8 "
+                         f"(S, {r}, {r}, 2, 33) on the tables' device")
+    if dst.dtype != torch.int32 or dst.device != tables.device or \
+            dst.numel() != n:
+        raise ValueError("g1_fft_stage: dst must be int32 (n,)")
+    out = JacobianPoint(*(torch.empty((n_pts, NP), dtype=torch.int32,
+                                      device=tables.device)
+                          for _ in range(3)))
+    if n_pts:
+        lib = build.library("g1_fft_kernels")
+        LAUNCHES["g1_fft_stage"] += 1
+        build.check(lib.kzg_g1_fft_stage(
+            *(c.data_ptr() for c in out), tables.data_ptr(),
+            digits.data_ptr(), dst.data_ptr(), n, log_r, digits.shape[0],
+            n_pts // r, stage_smem_bytes(r), stream_of(tables)),
+            "g1_fft_stage")
+    return out
+
+
+def g1_fixed_base_mul(tables: torch.Tensor, digits) -> JacobianPoint:
+    """Per lane sum_w sign(d_w) T[lane][w][|d_w| - 1] over the 64 signed
+    digits of fr.scalar_windows_signed: the lane's base times the scalar,
+    from its fixed-base table (g1_window_table with 64 windows), Jacobian
+    out (replaces, on the FK20 path, the route of
+    kzg_tpu/curve/pallas_g1.py::_scalar_mul_fn)."""
+    if tables.device.type == "cpu":
+        return g1_fixed_base_mul_plain(tables, digits)
+    check_words(tables, PW, "g1_fixed_base_mul")
+    n = digits.shape[0]
+    if tuple(tables.shape) != (n, FIXED_WINDOWS, 8, PW):
+        raise ValueError("g1_fixed_base_mul: tables must be (n, 64, 8, 36)")
+    _check_digits("g1_fixed_base_mul", digits, n, tables.device)
+    if digits.shape[-1] != FIXED_WINDOWS:
+        raise ValueError("g1_fixed_base_mul: 64 windows a lane")
+    out = JacobianPoint(*(torch.empty((n, NP), dtype=torch.int32,
+                                      device=tables.device)
+                          for _ in range(3)))
+    if n:
+        lib = build.library("g1_table_kernels")
+        LAUNCHES["g1_fixed_base_mul"] += 1
+        build.check(lib.kzg_g1_fixed_base_mul(
+            *(c.data_ptr() for c in out), tables.data_ptr(),
+            digits.data_ptr(), n, stream_of(tables)), "g1_fixed_base_mul")
+    return out
 
 
 def g1_add(p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:

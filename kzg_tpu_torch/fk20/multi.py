@@ -4,11 +4,15 @@ in O(n log n) (reference: fk20_multi.go:25-133, kzg.go:66-116).
 The polynomial splits into l strided sub-polynomials; each contributes a
 Toeplitz product against its own strided CRS slice, and the l products
 sum into one hExtFFT. All l are batched: one Fr FFT launch per stage, one
-K3 launch for the pointwise products, a log2(l) tree sum (one `g1_add`
-launch per level), then the G1 FFTs on K4. The per-offset part-1 tables are also built as one batch.
+fixed-base launch for the pointwise products (on tables built with the
+settings), a log2(l) tree sum (one `g1_add` launch per level), then the
+G1 FFTs (one dense stage each at 2k <= 128 points). The per-offset part-1
+tables are also built as one batch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ from ..field import fr
 from ..kzg.settings import KZGSettings
 from .toeplitz import (
     concat_points,
+    fixed_base_tables,
     toeplitz_part1,
     toeplitz_part2,
     toeplitz_part3,
@@ -46,8 +51,9 @@ def crs_indices(n: int, l: int) -> np.ndarray:
 
 class FK20MultiSettings:
     """The l per-offset xExtFFT tables, (l, 2k) points
-    (reference: NewFK20MultiSettings, kzg.go:73-116). n2 = 2n is the
-    extended width; chunk_len = l the coset size."""
+    (reference: NewFK20MultiSettings, kzg.go:73-116), and their fixed-base
+    tables for part 2, (l, 2k, 64, 8, 36) words. n2 = 2n is the extended
+    width; chunk_len = l the coset size."""
 
     def __init__(self, ks: KZGSettings, n2: int, chunk_len: int,
                  x_ext_fft_files: JacobianPoint | None = None):
@@ -82,6 +88,12 @@ class FK20MultiSettings:
             raise ValueError(f"tables must be {expect} points")
         return cls(ks, n2, chunk_len, x_ext_fft_files)
 
+    @functools.cached_property
+    def x_ext_fft_tables(self) -> torch.Tensor:
+        """Fixed-base tables of the part-1 points for part 2, built on the
+        card at first use and kept (604 MB at 8192 points)."""
+        return fixed_base_tables(self.x_ext_fft_files)
+
     def _h_from_reduced(self, reduced) -> JacobianPoint:
         """reduced (n, 8) -> h, (k,) points."""
         l = self.chunk_len
@@ -89,7 +101,7 @@ class FK20MultiSettings:
                            for i in range(l)])              # (l, 2k, 8)
         h_ext_fft = tree_reduce(
             g1.ops_kernel,
-            toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_files))
+            toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_tables))
         return toeplitz_part3(self.ks.fs, h_ext_fft)
 
     def fk20_multi(self, poly) -> JacobianPoint:

@@ -5,12 +5,14 @@ NewFK20SingleSettings, kzg.go:38-64).
 The proofs pi_i = [q_{w^i}(s)]_1 are the G1 FFT of h = T(f) x with
 x = [s^{n-2}, ..., s^1, s^0, O] and T(f) the Toeplitz matrix of the
 coefficients, computed by circulant embedding (toeplitz.py): one Fr FFT,
-one K3 launch, then G1 FFTs on K4. The DA-optimized variant uses the zero
+one fixed-base product on the settings' tables, then G1 FFTs. The DA-optimized variant uses the zero
 top half of an extended polynomial, so the Toeplitz work stays n wide for
 2n proofs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,8 +21,8 @@ from ..curve.fft_g1 import fft_g1, reverse_bit_order_g1
 from ..curve.weierstrass import JacobianPoint, map_points
 from ..field import fr
 from ..kzg.settings import KZGSettings
-from .toeplitz import concat_points, toeplitz_part1, toeplitz_part2, \
-    toeplitz_part3
+from .toeplitz import concat_points, fixed_base_tables, toeplitz_part1, \
+    toeplitz_part2, toeplitz_part3
 
 
 def toeplitz_coeffs_step(poly):
@@ -34,7 +36,8 @@ def toeplitz_coeffs_step(poly):
 
 class FK20SingleSettings:
     """xExtFFT = FFT_G1([x; 0]), (2n,) points, for n2 = 2n (reference:
-    NewFK20SingleSettings, kzg.go:43-64)."""
+    NewFK20SingleSettings, kzg.go:43-64), and its fixed-base tables,
+    (2n, 64, 8, 36) words."""
 
     def __init__(self, ks: KZGSettings, n2: int,
                  x_ext_fft: JacobianPoint | None = None):
@@ -63,11 +66,17 @@ class FK20SingleSettings:
             raise ValueError(f"the table must be {n2} points")
         return cls(ks, n2, x_ext_fft)
 
+    @functools.cached_property
+    def x_ext_fft_tables(self) -> torch.Tensor:
+        """Fixed-base tables of the part-1 points for part 2, built on the
+        card at first use and kept (604 MB at 8192 points)."""
+        return fixed_base_tables(self.x_ext_fft)
+
     def _h(self, poly) -> JacobianPoint:
         """poly (n, 8) -> h, (n,) points."""
         fs = self.ks.fs
         return toeplitz_part3(fs, toeplitz_part2(
-            fs, toeplitz_coeffs_step(poly), self.x_ext_fft))
+            fs, toeplitz_coeffs_step(poly), self.x_ext_fft_tables))
 
     def fk20_single(self, poly) -> JacobianPoint:
         """All n proofs for p at the n-th roots of unity, natural order

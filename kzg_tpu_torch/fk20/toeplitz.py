@@ -1,8 +1,9 @@
 """Toeplitz matrix-by-CRS-vector products in Fourier space, the FK20
 core (reference: toeplitzPart1/2/3, fk20_single.go:40-87):
     T x = IFFT_G1( FFT_Fr(c) o FFT_G1([x; 0]) )[:n]
-Part 1 is a precompute, part 2 one batched scalar multiply (K3), part 3
-one inverse G1 FFT (K4). Every part takes leading batch axes.
+Part 1 is a precompute, and with it the fixed-base tables of its points;
+part 2 one batched fixed-base product (`g1_fixed_base_mul`, no doubling),
+part 3 one inverse G1 FFT. Every part takes leading batch axes.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ import torch
 
 from ..curve import g1
 from ..curve.fft_g1 import fft_g1
+from ..curve.kernels import FIXED_WINDOWS, g1_fixed_base_mul, g1_window_table
 from ..curve.weierstrass import JacobianPoint, map_points
+from ..field import fp, fr
 from ..ntt.domain import FFTSettings
 from ..ntt.fft_fr import fft
 
@@ -27,11 +30,30 @@ def toeplitz_part1(fs: FFTSettings, x: JacobianPoint) -> JacobianPoint:
     return fft_g1(fs, concat_points(x, inf))
 
 
+def fixed_base_tables(x_ext_fft: JacobianPoint) -> torch.Tensor:
+    """The fixed-base tables of part 1's (..., 2k) points, int32
+    (..., 2k, 64, 8, 36): entry m of window w of point B is (m+1) 16^w B
+    (g1_window_table; 604 MB at 8192 points)."""
+    shape = tuple(x_ext_fft.x.shape[:-1])
+    flat = map_points(lambda c: c.reshape(-1, fp.N_WORDS).contiguous(),
+                      x_ext_fft)
+    return g1_window_table(flat, FIXED_WINDOWS).reshape(
+        shape + (FIXED_WINDOWS, 8, 3 * fp.N_WORDS))
+
+
 def toeplitz_part2(fs: FFTSettings, toeplitz_coeffs,
-                   x_ext_fft: JacobianPoint) -> JacobianPoint:
+                   x_ext_fft_tables: torch.Tensor) -> JacobianPoint:
     """hExtFFT[i] = FFT(toeplitz_coeffs)[i] * xExtFFT[i]; coeffs
-    (..., 2k, 8) against (..., 2k) points: one batched K3 launch."""
-    return g1.mul(x_ext_fft, fft(fs, toeplitz_coeffs))
+    (..., 2k, 8) against the (..., 2k) points' fixed-base tables: one
+    batched g1_fixed_base_mul launch."""
+    digits = fr.scalar_windows_signed(fft(fs, toeplitz_coeffs))
+    shape = tuple(digits.shape[:-1])
+    tables = x_ext_fft_tables.reshape((-1,) + x_ext_fft_tables.shape[-3:])
+    if tables.shape[0] != digits[..., 0].numel():
+        raise ValueError("toeplitz_part2: one table per coefficient")
+    out = g1_fixed_base_mul(tables, digits.reshape(-1, FIXED_WINDOWS)
+                            .contiguous())
+    return map_points(lambda c: c.reshape(shape + (fp.N_WORDS,)), out)
 
 
 def toeplitz_part3(fs: FFTSettings, h_ext_fft: JacobianPoint) -> JacobianPoint:

@@ -68,3 +68,36 @@ def test_entry_points_match_bindings():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
             assert m, fn
             assert len(m.group(1).split(",")) == len(argtypes), fn
+
+
+def test_entry_point_argument_types():
+    """Each C parameter is a pointer (void*) or an int, in the order of
+    the ctypes argtypes: a pointer bound as an int would be cut to 32
+    bits."""
+    kinds = {"void*": build._P, "int": build._I}
+    for lib, fns in build.SIGNATURES.items():
+        text = source(f"{lib}.cu")
+        for fn, argtypes in fns.items():
+            params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                               text).group(1).split(",")
+            got = [kinds["void*" if "*" in p else p.split()[-2]]
+                   for p in params]
+            assert got == list(argtypes), fn
+
+
+def test_ladder_layout_constants():
+    """The stage kernel's block size, its staged table stride and the
+    fixed-base kernel's threads per lane and windows equal the wrapper's
+    (curve/kernels.py), which sizes the shared memory and the grids."""
+    from kzg_tpu_torch.curve import kernels as gk
+
+    stage = source("g1_fft_kernels.cu")
+    assert f"constexpr int kThreads = {gk.STAGE_THREADS};" in stage
+    assert "kTabStride = kzg::TW + 4;" in stage
+    assert gk.TABLE_SMEM_WORDS == 8 * gk.PW + 4
+    g1h = source("g1.cuh")
+    assert "constexpr int PW = 3 * NP;" in g1h
+    assert "constexpr int TW = 8 * PW;" in g1h
+    table = source("g1_table_kernels.cu")
+    assert f"constexpr int kParts = {gk.FIXED_PARTS};" in table
+    assert f"constexpr int kWindows = {gk.FIXED_WINDOWS};" in table
