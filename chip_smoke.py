@@ -10,10 +10,16 @@ Phases; any failure raises and the script exits non-zero with no result:
   2. hold each kernel against its plain PyTorch version on the card, bit
      for bit, at the main path's shapes (`butterfly`, on no path, at 2^16
      Fr and Fp lanes, with one broadcast twiddle and against Python ints;
+     the digit recoding fr_signed_windows at part 2's 8192 scalars;
      the G1 FFT stage at 16 points, dense and 4 x 4, and at 128 points
      dense, and at 16 points summing to zero (an output at infinity), and K4 under a forced radix-2 plan at 128, whose transform
      must equal the dense one in affine form; the window tables and the
-     fixed-base product at 2^10 lanes, and at the path's 8192 in 4);
+     fixed-base product at 2^10 lanes, and with two lanes a base, and at
+     the path's 8192 in 4; g1_sum at the path shapes, FK20's 64-way sum
+     of 128 rows, the commitment's 4096 lanes and the MSM's 64 windows of
+     4096 points, and on edge rows (one point, odd counts, a row all at
+     infinity in both encodings, P with -P, P with P); g1_horner for one
+     and three MSMs);
   3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
      and a few outputs against direct evaluation with Python ints;
   4. the proof path at the PeerDAS shape (EIP-7594: a 4096-element blob
@@ -26,21 +32,26 @@ Phases; any failure raises and the script exits non-zero with no result:
      known secret). The plain path rebuilds the settings' 64-window
      tables on the plain version and they must equal the kernel's; part
      2's fixed-base product at the path's 8192 lanes must equal its plain
-     version bit for bit and K3's in affine form;
+     version bit for bit and K3's in affine form. The CRS's fixed-base
+     tables (built with the setup, counted there) must equal their plain
+     rebuild. The path must launch g1_sum once and g1_add never;
   5. the producer path at the same shape (a blob builder's flow,
      examples/full_das_pipeline.py:49-78): 4096 evaluations ->
      das_extend_interleaved -> 8192 values -> inverse FFT (top half zero)
-     -> commit_to_poly (a 4096-point MSM) -> fk20_multi_da_optimized.
-     The launch counters of its kernels must be > 0; the extension must
-     equal the plain path's, the commitment the host oracle [p(s)]G, the
-     proofs the host oracle;
+     -> commit_to_poly (a 4096-point MSM: one fixed-base product on the
+     CRS tables and one g1_sum) -> fk20_multi_da_optimized. The launch
+     counters of its kernels must be > 0 and g1_double's 0; the extension
+     must equal the plain path's, the commitment the host oracle [p(s)]G,
+     the variable-base lin_comb_g1 and the plain route on the plain CRS
+     tables, the proofs the host oracle;
   6. the reconstruction path at the same shape (a PeerDAS node that holds
      64 of the 128 cells, consensus-specs recover_cells_and_kzg_proofs):
      the producer's extension with the other 64 cells' 4096 values
      garbled -> recover_poly_from_samples -> inverse FFT (top half zero)
      -> commit_to_poly -> fk20_multi_da_optimized. The launch counters
-     of the path's kernels must be > 0; the values must equal the
-     extension, the commitment and the 128 proofs the producer's. At
+     of the path's kernels must be > 0 and g1_double's 0; the values
+     must equal the extension, the commitment and the 128 proofs the
+     producer's. At
      n = 1024 with half missing, the legacy erasure_code_recover must
      equal recover_poly_from_samples;
   7. the proof API at full width: compute_proof_single on the blob's 4096
@@ -51,8 +62,12 @@ Phases; any failure raises and the script exits non-zero with no result:
      of them against the host oracle;
   8. times on the card after warm-up: whole calls with CUDA events,
      each kernel's device time (its output first held bit for bit against
-     its plain version at the timed shape), the old ladder kernels beside the new
-     ones in turns, the 8192-point G1 FFT under several radix plans with
+     its plain version at the timed shape), the old routes beside the new
+     ones in turns (K3 and K4 against the fixed-base product and the dense
+     stage; the previous commit route, window sums on a g1_add tree and a
+     Horner loop of 315 one-lane launches, against the fixed-base commit;
+     FK20's 6-launch g1_add tree against g1_sum), the variable-base MSM at
+     4096 points, the 8192-point G1 FFT under several radix plans with
      each stage's time, the product's dependent latency (a one-lane K3
      launch), and the FK20, commit and recovery calls' device activity
      from torch.profiler traces.
@@ -81,11 +96,11 @@ SECRET = 1927409816240961209460912649124
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 OUT_DIR = "chiprun_out"
-# the kernels every FK20 multi call runs (the blob's inverse FFT, part 2
-# on the fixed-base tables, the tree sum, the dense G1 FFTs)
+# the kernels every FK20 multi call runs (the blob's inverse FFT, part 2's
+# digits and fixed-base product, the l-way sum, the dense G1 FFTs)
 PATH_KERNELS = ("mont_mul", "fr_scale", "fr_butterfly_stage",
-                "g1_fixed_base_mul", "g1_window_table", "g1_fft_stage",
-                "g1_add")
+                "fr_signed_windows", "g1_fixed_base_mul", "g1_window_table",
+                "g1_fft_stage", "g1_sum")
 
 
 def log(*a):
@@ -194,11 +209,11 @@ def oracle_proofs(coeffs, n2: int, l: int, secret: int, r: int, host_ec):
 def plain_path():
     """Route the modules' kernel calls to the plain versions (this
     script's reference run; the package itself never does this)."""
-    from kzg_tpu_torch.curve import fft_g1, g1
+    from kzg_tpu_torch.curve import fft_g1, g1, msm
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
-    from kzg_tpu_torch.fk20 import toeplitz
+    from kzg_tpu_torch.fk20 import multi, toeplitz
     from kzg_tpu_torch.ntt import das, fft_fr
 
     def stage(spec, x, roots, log_half, stride, offset=0):
@@ -210,6 +225,7 @@ def plain_path():
                                              stride))
 
     swaps = [(fr, "mont_mul", fk.mont_mul_plain),
+             (fr, "fr_signed_windows", fk.fr_signed_windows_plain),
              (fp, "mont_mul", fk.mont_mul_plain),
              (fft_fr, "fr_butterfly_stage", stage),
              (fft_fr, "fr_scale", fk.fr_scale_plain),
@@ -222,8 +238,11 @@ def plain_path():
              (fft_g1, "g1_glv_butterfly", gk.g1_glv_butterfly_plain),
              (fft_g1, "g1_window_table", gk.g1_window_table_plain),
              (fft_g1, "g1_fft_stage", gk.g1_fft_stage_plain),
-             (toeplitz, "g1_window_table", gk.g1_window_table_plain),
-             (toeplitz, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain)]
+             (msm, "g1_window_table", gk.g1_window_table_plain),
+             (toeplitz, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain),
+             (msm, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain),
+             (msm, "g1_sum", gk.g1_sum_plain),
+             (multi, "g1_sum", gk.g1_sum_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -301,7 +320,8 @@ def main() -> int:
     from kzg_tpu_torch.curve import g1
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.curve.fft_g1 import reverse_bit_order_g1
-    from kzg_tpu_torch.curve.msm import horner_windows, window_sums
+    from kzg_tpu_torch.curve import msm
+    from kzg_tpu_torch.curve.msm import tree_reduce
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
     from kzg_tpu_torch.das.legacy import erasure_code_recover
     from kzg_tpu_torch.das.recovery import recover_poly_from_samples
@@ -392,6 +412,20 @@ def main() -> int:
     check(same(got, want), "fr_scale differs")
     checks["fr_scale"] = max_abs_err(got, want)
     log("fr_scale: 4096 lanes (2^12 inverse-FFT exit) bit-exact")
+
+    # fr_signed_windows at part 2's 8192 scalars with the ends of the range
+    sw_ints = random_fr_ints(rng, 8192 - 6, r) + [0, 1, 8, r - 1, r - 2,
+                                                  int("8" * 63, 16) % r]
+    sw_in = fr.SPEC.words(sw_ints, dev)
+    got = fk.fr_signed_windows(sw_in)
+    want = fk.fr_signed_windows_plain(sw_in)
+    check(same(got, want), "fr_signed_windows differs")
+    checks["fr_signed_windows"] = max_abs_err(got, want)
+    for v, row in zip(sw_ints[-8:], got[-8:].tolist()):
+        check(sum(d << (4 * j) for j, d in enumerate(row)) == v,
+              "fr_signed_windows digits do not rebuild the scalar")
+    log("fr_signed_windows: 8192 scalars bit-exact (incl. 0, 1, r-1); the "
+        "digits rebuild the scalars")
 
     for inverse in (False, True):
         got = fft(fs12, x12, inverse)
@@ -493,8 +527,101 @@ def main() -> int:
     log(f"g1_window_table (64 windows, and gathered with 1) and "
         f"g1_fixed_base_mul: {n10} lanes bit-exact; the product equals K3's "
         f"in affine form")
+    # two lanes a base (the base modulus of a batch of commitments on one
+    # CRS's tables): lane i takes base i % 1024
+    d2k = digits[:2 * n10].contiguous()
+    got = gk.g1_fixed_base_mul(t10, d2k)
+    want = gk.g1_fixed_base_mul_plain(t10, d2k)
+    check(same(got, want), "g1_fixed_base_mul (two lanes a base) differs")
+    checks["g1_fixed_base_mul"] = max(checks["g1_fixed_base_mul"],
+                                      max_abs_err(got, want))
+    b2k = JacobianPoint(*(torch.cat((c, c)) for c in b10))
+    check(same(g1.to_affine(got), g1.to_affine(gk.g1_scalar_mul(b2k, d2k))),
+          "g1_fixed_base_mul (two lanes a base) differs from K3")
+    log(f"g1_fixed_base_mul: {2 * n10} lanes on {n10} bases (lane % {n10}) "
+        f"bit-exact and equal to K3 in affine form")
 
-    # g1_add at the width of the MSM's first tree level (2048 x 64 lanes):
+    # g1_sum at the path shapes: FK20's l-way sum ((64, 128) points summed
+    # over axis 0), the commitment's row of 4096 lanes, and the MSM's 64
+    # window rows of 4096 points ((4096, 64) from window_points' gather,
+    # zero digits as all-zero words, summed over axis 0). K3's outputs
+    # hold infinity in lanes 0-3 (infinite bases, the scalar 0).
+    def host_sum(p: JacobianPoint):
+        acc = None
+        for a in g1.to_affine_ints(JacobianPoint(*(c.reshape(-1, 12)
+                                                   for c in p))):
+            acc = host_ec.g1_add(acc, a)
+        return acc
+
+    ncm = n3 // 2       # the commitment's lanes at the path shape
+    bcm = JacobianPoint(*(c[:ncm].contiguous() for c in base))
+    wpts = msm.window_points(bcm, fr.from_int(sv[:ncm], dev))
+    sum_cases = {
+        f"FK20 64 x {n3 // 64}, axis 0": (JacobianPoint(
+            *(c.reshape(64, n3 // 64, 12) for c in k3_out)), 0),
+        f"commit 1 x {ncm}": (JacobianPoint(*(c[None, :ncm]
+                                              for c in k3_out)), -1),
+        f"MSM {ncm} x 64, axis 0": (wpts, 0)}
+    checks["g1_sum"] = 0
+    sums = {}
+    for key, (pts_, dim) in sum_cases.items():
+        got, want = gk.g1_sum(pts_, dim), gk.g1_sum_plain(pts_, dim)
+        check(same(got, want), f"g1_sum {key} differs from its plain version")
+        checks["g1_sum"] = max(checks["g1_sum"], max_abs_err(got, want))
+        sums[key] = got
+    fk20_sum, commit_sum, msm_sums = sums.values()
+    check(g1.to_affine_ints(JacobianPoint(*(c[5:6] for c in fk20_sum)))
+          == [host_sum(JacobianPoint(*(c[5::n3 // 64] for c in k3_out)))],
+          "g1_sum (FK20 shape) disagrees with the host oracle")
+    check(g1.to_affine_ints(commit_sum) == [host_sum(
+        JacobianPoint(*(c[:ncm] for c in k3_out)))],
+        "g1_sum (commit shape) disagrees with the host oracle")
+    log(f"g1_sum: {', '.join(sum_cases)} bit-exact; the FK20 and commit "
+        f"shapes equal the host oracle")
+    # edge rows: one point; 13 with infinity as (1, 1, 0) and as all-zero
+    # words inside; 4097 (a ragged second pass); all at infinity in both
+    # encodings; P with -P; P with P
+    e = JacobianPoint(*(c[8:21].clone() for c in k3_out))
+    for c, i in zip(e, g1.infinity((1,), dev)):
+        c[5], c[12] = i[0], 0
+    inf6 = JacobianPoint(*(torch.cat((i, torch.zeros_like(i))) for i in
+                           g1.infinity((3,), dev)))
+    p1 = JacobianPoint(*(c[9:10] for c in k3_out))
+    edge_rows = {"one": JacobianPoint(*(c[:1] for c in e)), "odd 13": e,
+                 f"odd {ncm + 1}": JacobianPoint(*(c[:ncm + 1]
+                                                   for c in k3_out)),
+                 "infinity": inf6,
+                 "P, -P": JacobianPoint(*(torch.cat((a, b)) for a, b in zip(
+                     p1, (p1.x, fp.neg(p1.y), p1.z)))),
+                 "P, P": JacobianPoint(*(torch.cat((c, c)) for c in p1))}
+    for key, row in edge_rows.items():
+        row = JacobianPoint(*(c[None].contiguous() for c in row))
+        got, want = gk.g1_sum(row), gk.g1_sum_plain(row)
+        check(same(got, want), f"g1_sum edge row {key} differs")
+        checks["g1_sum"] = max(checks["g1_sum"], max_abs_err(got, want))
+        oracle = host_sum(row)
+        check(g1.to_affine_ints(got) == [oracle],
+              f"g1_sum edge row {key} disagrees with the host oracle")
+        check(oracle is not None or not any(bool(c.any()) for c in got),
+              f"g1_sum edge row {key}: infinity is not all-zero words")
+    log(f"g1_sum edge rows ({', '.join(edge_rows)}) bit-exact and equal to "
+        f"the host oracle, infinity as all-zero words")
+    # g1_horner for one MSM (the window sums above: it must equal the sum
+    # of K3's lane products) and for three (K3's outputs as window sums)
+    ws1 = JacobianPoint(*(c[None] for c in msm_sums))
+    h3 = JacobianPoint(*(c[:192].reshape(3, 64, 12) for c in k3_out))
+    checks["g1_horner"] = 0
+    for key, w in (("1", ws1), ("3", h3)):
+        got, want = gk.g1_horner(w), gk.g1_horner_plain(w)
+        check(same(got, want), f"g1_horner ({key} MSMs) differs")
+        checks["g1_horner"] = max(checks["g1_horner"], max_abs_err(got, want))
+        if key == "1":
+            check(same(g1.to_affine(got), g1.to_affine(commit_sum)),
+                  "g1_horner of the window sums differs from the MSM")
+    log(f"g1_horner: 1 and 3 MSMs bit-exact; one MSM over {ncm} points "
+        "(window sums -> Horner) equals the sum of K3's products")
+
+    # g1_add at 2^17 lanes (the width of PR 2-4's first MSM tree level):
     # random r-torsion points, and the edge lanes 0 P == Q under another
     # Z, 1 Q == -P, 2-3 Q at infinity as (1, 1, 0) and all-zero words,
     # 4-5 P at infinity likewise, 6 both at infinity
@@ -580,12 +707,23 @@ def main() -> int:
     table_s = time.time() - t
     table_bytes = tables.numel() * tables.element_size()
     table_peak = torch.cuda.max_memory_allocated() - mem0
+    # the CRS's fixed-base tables, which every commitment reads
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.time()
+    crs_tables = ks.secret_g1_tables
+    torch.cuda.synchronize()
+    crs_table_s = time.time() - t
+    crs_table_bytes = crs_tables.numel() * crs_tables.element_size()
+    crs_table_peak = torch.cuda.max_memory_allocated() - mem0
     setup_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"CRS (4096 points, K3): {crs_s:.2f} s; FK20 settings "
         f"(64 x 128-point G1 FFTs, batched): {setup_s:.2f} s; fixed-base "
         f"tables ({tables.shape[0]} x {tables.shape[1]} bases x 64 windows x "
         f"8): {table_s:.3f} s, {table_bytes} bytes, peak {table_peak} bytes "
-        f"above the settings")
+        f"above the settings; the CRS's tables ({n} bases): "
+        f"{crs_table_s:.3f} s, {crs_table_bytes} bytes, peak "
+        f"{crs_table_peak} bytes above them")
     log(f"setup launches: {json.dumps(setup_launches)}")
     for name in ("g1_scalar_mul", "g1_window_table", "g1_fft_stage"):
         check(setup_launches[name] > 0, f"{name} was not launched in setup")
@@ -606,6 +744,8 @@ def main() -> int:
     for name in PATH_KERNELS:
         check(fk20_launches[name] > 0,
               f"{name} was not launched on the proof path")
+    check(fk20_launches["g1_sum"] == 1 and fk20_launches["g1_add"] == 0,
+          "the proof path must launch g1_sum once and g1_add never")
     check(proofs.x.shape == (n2 // l, fp.N_WORDS),
           f"proofs have shape {tuple(proofs.x.shape)}")
 
@@ -618,7 +758,7 @@ def main() -> int:
     # the plain path builds its own 64-window tables from the part-1
     # points on g1_window_table's plain version, and runs on them
     with plain_path():
-        plain_tables = toeplitz.fixed_base_tables(fkm.x_ext_fft_files)
+        plain_tables = msm.fixed_base_tables(fkm.x_ext_fft_files)
     check(same(tables, plain_tables),
           "the settings' fixed-base tables differ from their plain version")
     checks["g1_window_table"] = max(checks["g1_window_table"],
@@ -642,6 +782,7 @@ def main() -> int:
                        for i in range(l)])
     coeff_fft = fft(fs13, tcs)
     got = toeplitz.toeplitz_part2(fs13, tcs, tables)
+    part2 = got
     with plain_path():
         want = toeplitz.toeplitz_part2(fs13, tcs, plain_tables)
     check(same(got, want),
@@ -670,9 +811,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"producer path launches: {json.dumps(launches)}")
-    for name in PATH_KERNELS + ("fr_dif_stage", "g1_double"):
+    for name in PATH_KERNELS + ("fr_dif_stage",):
         check(launches[name] > 0,
               f"{name} was not launched on the producer path")
+    check(launches["g1_double"] == 0, "the producer path launched g1_double")
     check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
           "the extension does not keep the evens")
     with plain_path():
@@ -684,6 +826,32 @@ def main() -> int:
     check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in commit)))
           == [host_ec.g1_mul(gen, eval_poly(cf_ints[:n], SECRET % r, r))],
           "the commitment differs from the host oracle")
+    crs_n = JacobianPoint(*(c[:n] for c in ks.secret_g1))
+    check(same(g1.to_affine(msm.lin_comb_g1(crs_n, cf[:n])),
+               g1.to_affine(commit)),
+          "the commitment differs from the variable-base lin_comb_g1")
+    # the plain route on the plain CRS tables, rebuilt from the CRS by the
+    # plain table version; both must equal the kernels' word for word
+    t = time.time()
+    with plain_path():
+        plain_crs_tables = msm.fixed_base_tables(ks.secret_g1)
+    torch.cuda.synchronize()
+    plain_crs_table_s = time.time() - t
+    check(same(crs_tables, plain_crs_tables),
+          "the CRS's fixed-base tables differ from their plain version")
+    checks["g1_window_table"] = max(checks["g1_window_table"], max_abs_err(
+        crs_tables, plain_crs_tables))
+    ks_plain = copy.copy(ks)
+    ks_plain.secret_g1_tables = plain_crs_tables
+    with plain_path():
+        plain_commit = ks_plain.commit_to_poly(cf[:n])
+    check(same(commit, plain_commit),
+          "the commitment differs from the plain route")
+    del plain_crs_tables, ks_plain
+    log(f"commitment: equals the host oracle, the variable-base lin_comb_g1 "
+        f"(affine) and the plain route on the plain CRS tables (words); the "
+        f"{n} x 64-window CRS tables equal their plain rebuild "
+        f"({plain_crs_table_s:.1f} s)")
     check(g1.to_affine_ints(reverse_bit_order_g1(proofs2))
           == oracle_proofs(cf_ints[:n], n2, l, SECRET, r, host_ec),
           "producer proofs differ from the host oracle")
@@ -715,9 +883,11 @@ def main() -> int:
     torch.cuda.synchronize()
     rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"reconstruction path launches: {json.dumps(rec_launches)}")
-    for name in PATH_KERNELS + ("g1_double",):
+    for name in PATH_KERNELS:
         check(rec_launches[name] > 0,
               f"{name} was not launched on the reconstruction path")
+    check(rec_launches["g1_double"] == 0,
+          "the reconstruction path launched g1_double")
     check(len(missing) == n2 // 2 and not same(samples, ext),
           "the samples do not miss half the extension")
     check(same(rec, ext), "recovery differs from the extension")
@@ -831,17 +1001,19 @@ def main() -> int:
     log(f"[{card}] Fr FFT 2^20: {fft20_ms:.3f} ms")
 
     ext_ms = timed(lambda: das_extend_interleaved(fs13, evens), 5)
-    commit_ms = timed(lambda: ks.commit_to_poly(cf[:n]), 3)
-    wsums = window_sums(g1.ops_kernel, JacobianPoint(
-        *(c[:n] for c in ks.secret_g1)), cf[:n])
-    wsums_ms = timed(lambda: window_sums(g1.ops_kernel, JacobianPoint(
-        *(c[:n] for c in ks.secret_g1)), cf[:n]), 3)
-    horner_ms = timed(lambda: horner_windows(g1.ops_kernel, wsums), 3)
+    commit_ms = timed(lambda: ks.commit_to_poly(cf[:n]), 5)
     producer_ms = timed(lambda: producer(evens), 3)
     log(f"[{card}] producer path (extend, inverse FFT, commit, FK20): "
         f"{producer_ms:.3f} ms; das_extend_interleaved {ext_ms:.3f} ms; "
-        f"commit_to_poly {commit_ms:.3f} ms = window sums {wsums_ms:.3f} ms"
-        f" + Horner (315 one-lane launches) {horner_ms:.3f} ms")
+        f"commit_to_poly (fixed-base product + g1_sum) {commit_ms:.3f} ms")
+    # the variable-base MSM over the same 4096 points (lin_comb_g1): the
+    # window sums (multiples table, gather, g1_sum) and g1_horner alone
+    wsums = msm.window_sums(crs_n, cf[:n])
+    wsums_ms = timed(lambda: msm.window_sums(crs_n, cf[:n]), 3)
+    horner_ms = timed(lambda: gk.g1_horner(wsums), 3)
+    lin_comb_ms = timed(lambda: msm.lin_comb_g1(crs_n, cf[:n]), 3)
+    log(f"[{card}] lin_comb_g1 at {n} points: {lin_comb_ms:.3f} ms; window "
+        f"sums {wsums_ms:.3f} ms, g1_horner {horner_ms:.3f} ms")
 
     def trace(what, fn, call_ms):
         """Device activity of one traced call of fn."""
@@ -1007,6 +1179,34 @@ def main() -> int:
     in_turns("K3 g1_scalar_mul vs g1_fixed_base_mul, 8192 lanes",
              lambda: gk.g1_scalar_mul(pts, dig),
              lambda: gk.g1_fixed_base_mul(tbl, dig), 3)
+
+    # PR 4's commit route, kept here only to time it beside the new one:
+    # the window sums as a tree of g1_add launches over the 4096 points,
+    # then Horner as 315 dependent one-lane launches (252 g1_double, 63
+    # g1_add)
+    def pr4_horner(ws: JacobianPoint) -> JacobianPoint:
+        acc = JacobianPoint(*(c[63] for c in ws))
+        for j in range(62, -1, -1):
+            for _ in range(4):
+                acc = gk.g1_double(acc)
+            acc = gk.g1_add(acc, JacobianPoint(*(c[j] for c in ws)))
+        return acc
+
+    def pr4_commit():
+        return pr4_horner(tree_reduce(g1.ops_kernel,
+                                      msm.window_points(crs_n, cf[:n])))
+
+    check(same(g1.to_affine(pr4_commit()), g1.to_affine(commit)),
+          "PR 4's commit route differs from the fixed-base commit")
+    check(same(g1.to_affine(tree_reduce(g1.ops_kernel, part2)),
+               g1.to_affine(gk.g1_sum(part2, 0))),
+          "FK20's g1_add tree differs from g1_sum")
+    in_turns("commit: PR 4 route (g1_add tree, 315-launch Horner) vs "
+             "fixed-base product + g1_sum", pr4_commit,
+             lambda: ks.commit_to_poly(cf[:n]), 3)
+    in_turns("FK20 l-way sum, 128 x 64: 6 g1_add launches vs one g1_sum",
+             lambda: tree_reduce(g1.ops_kernel, part2),
+             lambda: gk.g1_sum(part2, 0), 10)
     record("g1_scalar_mul", "scalar_mul_kernel",
            "kzg_tpu_torch/csrc/g1_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:473",
@@ -1101,14 +1301,14 @@ def main() -> int:
             + ", ".join(f"{k} {t:.3f}" for k, t in spans))
     log(f"default plan at 8192: {fft_mod.default_plan(n2)}")
 
-    # g1_add at the MSM's first tree level, 2^17 lanes (the edge lanes
+    # g1_add at 2^17 lanes, PR 2-4's first MSM tree level (the edge lanes
     # above; a lane's products are counted by the branch it takes)
     record("g1_add", "g1_add_kernel",
            "kzg_tpu_torch/csrc/g1_point_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:373",
            lambda: gk.g1_add(P, Q), lambda: gk.g1_add_plain(P, Q),
            n5 * 9 * 48, add_products * 300, checks["g1_add"], chain=16)
-    # g1_double at Horner's width: one lane per commitment
+    # g1_double at PR 2-4's Horner width: one lane per commitment
     P1 = JacobianPoint(*(c[7:8] for c in P))
     record("g1_double", "g1_double_kernel",
            "kzg_tpu_torch/csrc/g1_point_kernels.cu",
@@ -1116,6 +1316,78 @@ def main() -> int:
            lambda: gk.g1_double(P1), lambda: gk.g1_double_plain(P1),
            6 * 48, 7 * 300, checks["g1_double"], reps=20, plain_reps=5,
            chain=7)
+
+    def sum_chain(n_pts: int) -> int:
+        """Products on thread 0's chain of a g1_sum call over rows of
+        n_pts: per pass a conversion, its run's additions and the tree
+        levels whose partner holds items, the Jacobian store."""
+        run, threads = gk.SUM_RUN, gk.SUM_THREADS
+        total = 0
+        while True:
+            block = min(n_pts, run * threads)
+            adds = min(run, block) - 1
+            adds += sum(1 for s in (16, 8, 4, 2, 1) if s * run < block)
+            adds += sum(1 for s in range(threads // 64, 0, -1)
+                        if s * 32 * run < block)
+            total += 3 + 12 * adds + 3
+            if n_pts <= run * threads:
+                return total
+            n_pts = -(-n_pts // (run * threads))
+
+    def sum_bound(rows_: int, n_pts: int):
+        """(bound, by) of R rows of N points: each point read once (144
+        bytes), each sum written, R (N - 1) additions of 12 products."""
+        return bound_ms(rows_ * (n_pts + 1) * 144,
+                        rows_ * (n_pts - 1) * 12 * 300)
+
+    # g1_sum at FK20's l-way sum, 128 rows of 64 (part 2's output, axis 0)
+    record("g1_sum", "g1_sum_kernel", "kzg_tpu_torch/csrc/g1_sum_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:373",
+           lambda: gk.g1_sum(part2, 0), lambda: gk.g1_sum_plain(part2, 0),
+           128 * 65 * 144, 128 * 63 * 12 * 300, checks["g1_sum"], reps=10,
+           chain=sum_chain(64))
+    kernels[-1]["tree_latency_bound_ms"] = 6 * 12 * lat_ms
+    # and at the commitment's 1 x 4096 and the MSM's 64 x 4096 (two
+    # launches each: the second sums the block partials), on the path's
+    # own inputs
+    commit_parts = gk.g1_fixed_base_mul(crs_tables[:n],
+                                        fr.scalar_windows_signed(cf[:n]))
+    wpts_path = msm.window_points(crs_n, cf[:n])
+    sum_shapes = {}
+    for key, (pts_, dim, rows_, n_pts) in {
+            f"commit 1 x {n}": (JacobianPoint(*(c[None] for c in
+                                                commit_parts)), -1, 1, n),
+            f"MSM 64 x {n}": (wpts_path, 0, 64, n)}.items():
+        got = gk.g1_sum(pts_, dim)
+        check(same(got, gk.g1_sum_plain(pts_, dim)),
+              f"g1_sum {key} differs from its plain version")
+        fn = (lambda p_=pts_, d_=dim: gk.g1_sum(p_, d_))
+        call_ms = timed(fn, 5)
+        dev_ms, caught = kernel_ms(fn, "g1_sum_kernel", 5)
+        b, by = sum_bound(rows_, n_pts)
+        sum_shapes[key] = {
+            "call_ms": call_ms, "device_ms_per_launch": dev_ms,
+            "traced_launches": caught, "bound_ms": b, "bound_by": by,
+            "chain_products": sum_chain(n_pts),
+            "latency_ms": sum_chain(n_pts) * lat_ms,
+            "tree_latency_bound_ms": (n_pts - 1).bit_length() * 12 * lat_ms}
+        log(f"[{card}] g1_sum {key}: {call_ms:.4f} ms a call, {dev_ms} ms "
+            f"a launch on the device ({caught} traced); bound "
+            f"{b:.3g} ms by {by}; chain {sum_chain(n_pts)} products")
+    # g1_horner on the commitment's 64 window sums. The function needs
+    # 63 x (4 doublings + 1 addition): 7 products a Jacobian doubling
+    # (dbl-2009-l, as g1_double above) and 12 an addition, 2,520 in all.
+    # The kernel's own chain is longer: 8 products an RCB doubling, with
+    # the first window's conversion and the Jacobian store (2,778).
+    ws1 = JacobianPoint(*(c[None] for c in wsums))
+    horner_products = 63 * (4 * 7 + 12)
+    record("g1_horner", "g1_horner_kernel",
+           "kzg_tpu_torch/csrc/g1_sum_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:394",
+           lambda: gk.g1_horner(ws1), lambda: gk.g1_horner_plain(ws1),
+           65 * 144, horner_products * 300,
+           checks["g1_horner"], reps=3, chain=3 + 63 * (4 * 8 + 12) + 3)
+    kernels[-1]["function_latency_bound_ms"] = horner_products * lat_ms
     # fr_dif_stage at the extension's first down-sweep level: 2048
     # butterflies over one row of 4096
     x1 = xd[:1].clone()
@@ -1128,6 +1400,15 @@ def main() -> int:
                                          11, 2),
            2048 * (4 * 32 + 32), 2048 * (2 * 8 * 8 + 8),
            max(checks["fr_dif_stage"], checks["das_extension"]))
+    # fr_signed_windows at part 2's 8192 scalars: 32 bytes read and 256
+    # written a scalar, no products. It replaces plain tensor code of
+    # kzg_tpu, not a Pallas kernel
+    record("fr_signed_windows", "signed_windows_kernel",
+           "kzg_tpu_torch/csrc/fr_kernels.cu",
+           "kzg_tpu/field/fr.py:109-130",
+           lambda: fk.fr_signed_windows(sw_in),
+           lambda: fk.fr_signed_windows_plain(sw_in),
+           sw_in.shape[0] * (32 + 256), 0, checks["fr_signed_windows"])
     # butterfly, on no path, at phase 2's 2^16 Fr lanes with per-lane
     # twiddles: a, b, tw read, hi and lo written, one product a lane
     ba, bb, bt = bf_in
@@ -1145,8 +1426,12 @@ def main() -> int:
               "blob_to_proofs_ms": path_ms,
               "fft_2_20_ms": fft20_ms, "crs_s": crs_s, "setup_s": setup_s,
               "producer_ms": producer_ms, "das_extend_ms": ext_ms,
-              "commit_ms": commit_ms, "window_sums_ms": wsums_ms,
-              "horner_ms": horner_ms, "recover_ms": recover_ms,
+              "commit_ms": commit_ms, "lin_comb_g1_ms": lin_comb_ms,
+              "window_sums_ms": wsums_ms, "horner_ms": horner_ms,
+              "crs_table_s": crs_table_s, "crs_table_bytes": crs_table_bytes,
+              "crs_table_peak_bytes": crs_table_peak,
+              "plain_crs_table_s": plain_crs_table_s,
+              "g1_sum_shapes": sum_shapes, "recover_ms": recover_ms,
               "recover_to_proofs_ms": recover_to_proofs_ms,
               "fk20_single_ms": fk20_single_ms,
               "fk20_single_setup_s": single_setup_s, "build_s": build_s,

@@ -22,7 +22,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
 SOURCES = ("fr_kernels", "g1_kernels", "g1_fft_kernels", "g1_table_kernels",
-           "g1_point_kernels")
+           "g1_point_kernels", "g1_sum_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,7 @@ SIGNATURES = {
         "kzg_butterfly": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
         "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
         "kzg_fr_dif_stage": (_P, _P, _I, _I, _I, _I, _P),
+        "kzg_fr_signed_windows": (_P, _P, _I, _P),
     },
     "g1_kernels": {
         "kzg_g1_scalar_mul": (_P,) * 7 + (_I, _I, _P),
@@ -45,11 +46,15 @@ SIGNATURES = {
     },
     "g1_table_kernels": {
         "kzg_g1_window_table": (_P,) * 5 + (_I, _I, _I, _P),
-        "kzg_g1_fixed_base_mul": (_P,) * 5 + (_I, _P),
+        "kzg_g1_fixed_base_mul": (_P,) * 5 + (_I, _I, _P),
     },
     "g1_point_kernels": {
         "kzg_g1_add": (_P,) * 9 + (_I, _P),
         "kzg_g1_double": (_P,) * 6 + (_I, _P),
+    },
+    "g1_sum_kernels": {
+        "kzg_g1_sum": (_P,) * 6 + (_I,) * 4 + (_P,),
+        "kzg_g1_horner": (_P,) * 6 + (_I, _P),
     },
 }
 

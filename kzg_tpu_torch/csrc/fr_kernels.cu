@@ -1,5 +1,5 @@
-// Field kernels K1 (mont_mul), K2 (fr_butterfly_stage), fr_dif_stage and
-// butterfly,
+// Field kernels K1 (mont_mul), K2 (fr_butterfly_stage), fr_dif_stage,
+// butterfly and fr_signed_windows,
 // built by nvcc for sm_90a into a shared library with a plain C interface
 // (loaded by kzg_tpu_torch/build.py through ctypes).
 //
@@ -20,6 +20,12 @@
 // fused butterfly (a + b*tw, a - b*tw) over separate a, b and tw arrays,
 // for Fr or Fp, tw one per lane or one broadcast element. No path runs it
 // (in the JAX package too, only a test does); the FFT stays on K2.
+// fr_signed_windows is the digit recoding in front of the G1 scalar
+// products (fr.scalar_windows_signed, plain tensor code in
+// kzg_tpu/field/fr.py:109-130): canonical Fr words -> 64 signed 4-bit
+// windows, a + 0x0888...8 (63 eights) then each nibble less 8 (the top one
+// as it is). One thread a scalar runs the 8-word carry chain; its plain
+// version took some 40 tensor operations a call.
 //
 // Bound on this card: a canonical product moves 3 x 4N bytes (a, b, out)
 // and does 2N^2 + N 32x32->64 multiply-adds (300 for Fp, 136 for Fr).
@@ -50,6 +56,29 @@ __global__ void __launch_bounds__(kThreads)
   kzg::load<N>(y, b + (b_bcast ? 0 : (size_t)i * N));
   kzg::mul<N>(x, x, y);
   kzg::store<N>(out + (size_t)i * N, x);
+}
+
+// The 64 signed windows of each canonical Fr scalar, LSB first.
+__global__ void __launch_bounds__(kThreads)
+    signed_windows_kernel(int32_t* __restrict__ out,
+                          const int32_t* __restrict__ a, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int4* o = (int4*)(out + (size_t)i * 64);
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const uint64_t s = (uint64_t)(uint32_t)a[(size_t)i * 8 + k] +
+                       (k < 7 ? 0x88888888u : 0x08888888u) + carry;
+    const uint32_t w = (uint32_t)s;
+    carry = (uint32_t)(s >> 32);
+    int d[8];
+#pragma unroll
+    for (int q = 0; q < 8; q++)
+      d[q] = (int)((w >> (4 * q)) & 0xFu) - (8 * k + q < 63 ? 8 : 0);
+    o[2 * k] = make_int4(d[0], d[1], d[2], d[3]);
+    o[2 * k + 1] = make_int4(d[4], d[5], d[6], d[7]);
+  }
 }
 
 // hi = a + b*tw, lo = a - b*tw per lane; tw is one element when tw_bcast.
@@ -189,5 +218,12 @@ extern "C" int kzg_fr_dif_stage(void* x, const void* roots, int log_n,
                                 void* stream) {
   dif_stage_kernel<<<blocks(total), kThreads, 0, (cudaStream_t)stream>>>(
       (int32_t*)x, (const int32_t*)roots, log_n, log_half, stride, total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_fr_signed_windows(void* out, const void* a, int n,
+                                     void* stream) {
+  signed_windows_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)a, n);
   return (int)cudaGetLastError();
 }

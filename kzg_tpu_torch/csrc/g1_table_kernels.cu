@@ -13,7 +13,9 @@
 // kzg_tpu/curve/pallas_g1.py::_scalar_mul_fn (scalar_mul_pallas) in
 // toeplitz_part2: per lane, sum_w sign(d_w) T[b][w][|d_w| - 1] over the 64
 // signed digits of fr.scalar_windows_signed: 64 additions and no
-// doubling, since the bases are fixed when the settings are built.
+// doubling, since the bases are fixed when the settings are built. Lane i
+// takes base i % n_bases: FK20 gives every lane its own base, a batch of
+// commitments shares the CRS tables (kzg/settings.py).
 //
 // Bound on this card: the 64 additions of a lane are 768 Fp products; its
 // table reads 64 x 144 bytes. At 8192 lanes the multiply rate bounds it,
@@ -76,7 +78,8 @@ __global__ void __launch_bounds__(kThreads)
     fixed_base_mul_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                           int32_t* __restrict__ oz,
                           const int32_t* __restrict__ tables,
-                          const int32_t* __restrict__ digits, int n) {
+                          const int32_t* __restrict__ digits, int n,
+                          int n_bases) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = t / kParts;
   const int part = t % kParts;
@@ -84,9 +87,10 @@ __global__ void __launch_bounds__(kThreads)
   Proj acc;
   kzg::proj_identity(acc);
   if (valid) {
-    const size_t w0 = (size_t)lane * kWindows + part * (kWindows / kParts);
-    const int32_t* dig = digits + w0;
-    const uint4* tab = (const uint4*)tables + w0 * (TW / 4);
+    const int w0 = part * (kWindows / kParts);
+    const int32_t* dig = digits + (size_t)lane * kWindows + w0;
+    const uint4* tab = (const uint4*)tables +
+                       ((size_t)(lane % n_bases) * kWindows + w0) * (TW / 4);
 #pragma unroll 1
     for (int w = 0; w < kWindows / kParts; w++) {
       const int d = dig[w];
@@ -131,11 +135,11 @@ extern "C" int kzg_g1_window_table(void* tables, const void* px,
 
 extern "C" int kzg_g1_fixed_base_mul(void* ox, void* oy, void* oz,
                                      const void* tables, const void* digits,
-                                     int n, void* stream) {
+                                     int n, int n_bases, void* stream) {
   const long threads = (long)n * kParts;
   fixed_base_mul_kernel<<<(int)((threads + kThreads - 1) / kThreads),
                           kThreads, 0, (cudaStream_t)stream>>>(
       (int32_t*)ox, (int32_t*)oy, (int32_t*)oz, (const int32_t*)tables,
-      (const int32_t*)digits, n);
+      (const int32_t*)digits, n, n_bases);
   return (int)cudaGetLastError();
 }

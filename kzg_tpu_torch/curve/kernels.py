@@ -1,13 +1,13 @@
 """G1 ladder kernels K3 (`g1_scalar_mul`) and K4 (`g1_glv_butterfly`),
 the G1 FFT stage kernel `g1_fft_stage`, the window tables
 (`g1_window_table`) and the fixed-base product (`g1_fixed_base_mul`),
-and the point kernels `g1_add` and `g1_double`, with their plain PyTorch
-versions.
+the row sums `g1_sum` and `g1_horner`, and the point kernels `g1_add`
+and `g1_double`, with their plain PyTorch versions.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (csrc/g1_kernels.cu, g1_fft_kernels.cu,
-g1_table_kernels.cu, g1_point_kernels.cu) or raises. Each launch adds one
-to the wrapper's entry in `LAUNCHES`.
+g1_table_kernels.cu, g1_sum_kernels.cu, g1_point_kernels.cu) or raises.
+Each launch adds one to the wrapper's entry in `LAUNCHES`.
 
 The ladders run the complete Renes-Costello-Batina projective formulas
 (a = 0, b3 = 12) in the operation order of kzg_tpu/curve/pallas_g1.py,
@@ -28,6 +28,7 @@ test (h and r).
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -39,13 +40,15 @@ from .weierstrass import JacobianPoint
 
 LAUNCHES = {"g1_scalar_mul": 0, "g1_glv_butterfly": 0, "g1_add": 0,
             "g1_double": 0, "g1_window_table": 0, "g1_fft_stage": 0,
-            "g1_fixed_base_mul": 0}
+            "g1_fixed_base_mul": 0, "g1_sum": 0, "g1_horner": 0}
 
 NP = fp.N_WORDS
 PW = 3 * NP         # words of a projective point
 FIXED_WINDOWS = 64  # signed 4-bit windows of an Fr scalar
 FIXED_PARTS = 8     # threads (window groups) per lane of the fixed-base sum
 STAGE_THREADS = 128
+SUM_THREADS = 128   # threads of a g1_sum block
+SUM_RUN = 4         # consecutive points a g1_sum thread adds in a chain
 TABLE_SMEM_WORDS = 8 * PW + 4   # a staged [1..8] table with its pad
 
 
@@ -208,11 +211,6 @@ def g1_glv_butterfly_plain(a: JacobianPoint, b: JacobianPoint, d1, d2):
     return _shaped(lo, shape), _shaped(hi, shape)
 
 
-def _table_words(pl: _Plain, tbl) -> torch.Tensor:
-    """(8, 3, n, L) lazy limbs -> (n, 8, 36) canonical words."""
-    return pl.words(tbl).permute(2, 0, 1, 3).reshape(tbl.shape[2], 8, PW)
-
-
 def _table_limbs(tables: torch.Tensor) -> torch.Tensor:
     """(n, 8, 36) words -> (8, 3, n, L) limbs."""
     n = tables.shape[0]
@@ -228,13 +226,14 @@ def g1_window_table_plain(p: JacobianPoint, n_windows: int, src=None,
     if src is not None:
         idx = idx // src_n * src_n + src.long()[idx % src_n]
     base = pl.jac_to_proj(JacobianPoint(*(c[idx] for c in flat)))
-    out = []
-    for w in range(n_windows):
-        out.append(_table_words(pl, pl.table(base)))
-        if w + 1 < n_windows:
-            for _ in range(4):
-                base = pl.proj_double(base)
-    return torch.stack(out, dim=1)
+    bases = [base]      # 16^w B, then every window's table in one batch
+    for _ in range(n_windows - 1):
+        for _ in range(4):
+            base = pl.proj_double(base)
+        bases.append(base)
+    tbl = pl.table(tuple(torch.stack(cs, dim=1) for cs in zip(*bases)))
+    return pl.words(tbl).permute(2, 3, 0, 1, 4).reshape(
+        idx.shape[0], n_windows, 8, PW)
 
 
 def g1_fft_stage_plain(tables: torch.Tensor, digits: torch.Tensor, dst,
@@ -264,7 +263,7 @@ def g1_fft_stage_plain(tables: torch.Tensor, digits: torch.Tensor, dst,
 def g1_fixed_base_mul_plain(tables: torch.Tensor, digits) -> JacobianPoint:
     pl = _plain(tables.device)
     n = digits.shape[0]
-    lanes = torch.arange(n, device=digits.device)
+    lanes = torch.arange(n, device=digits.device) % tables.shape[0]
     step = FIXED_WINDOWS // FIXED_PARTS
     acc = None
     for w in range(step):    # window part * step + w of each part at once
@@ -281,6 +280,81 @@ def g1_fixed_base_mul_plain(tables: torch.Tensor, digits) -> JacobianPoint:
         keep = (d == 0).unsqueeze(-1)
         acc = tuple(torch.where(keep, a, b) for a, b in zip(acc, added))
     return pl.to_jac(pl.tree_sum(acc, FIXED_PARTS))
+
+
+def _tree_plain(pl: _Plain, acc, first, n: int):
+    """The kernel's shuffle tree over the axis -2 of (..., m, L) partials:
+    lane j += lane j + s for s = m/2 .. 1, where lane j + s's first item
+    first[..., j + s] lies below n."""
+    s = acc[0].shape[-2] >> 1
+    while s:
+        head = tuple(c[..., :s, :] for c in acc)
+        added = pl.proj_add(head, tuple(c[..., s:2 * s, :] for c in acc))
+        valid = (first[..., s:2 * s] < n).unsqueeze(-1)
+        acc = tuple(torch.where(valid, b, a) for a, b in zip(head, added))
+        s >>= 1
+    return tuple(c[..., 0, :] for c in acc)
+
+
+def _sum_pass_plain(p: JacobianPoint) -> JacobianPoint:
+    """One g1_sum launch: (rows, n) points -> (rows, blocks) partials, a
+    block's SUM_RUN x SUM_THREADS items each, in the kernel's order."""
+    pl = _plain(p.x.device)
+    rows, n = p.x.shape[:2]
+    span = SUM_RUN * SUM_THREADS
+    nb = -(-n // span)
+    x = pl.jac_to_proj(p)
+    if nb * span > n:
+        pad = pl.identity(x[0][:, :1].expand(rows, nb * span - n, -1))
+        x = tuple(torch.cat((c, d), 1) for c, d in zip(x, pad))
+    x = tuple(c.reshape(rows, nb, SUM_THREADS, SUM_RUN, -1) for c in x)
+    first = torch.arange(nb * span, device=p.x.device).reshape(
+        nb, SUM_THREADS, SUM_RUN)
+    acc = tuple(c[..., 0, :] for c in x)
+    for k in range(1, SUM_RUN):
+        added = pl.proj_add(acc, tuple(c[..., k, :] for c in x))
+        valid = (first[..., k] < n).unsqueeze(-1)
+        acc = tuple(torch.where(valid, b, a) for a, b in zip(acc, added))
+    first = first[..., 0].reshape(nb, SUM_THREADS // 32, 32)
+    acc = _tree_plain(pl, tuple(c.reshape(rows, nb, SUM_THREADS // 32, 32, -1)
+                                for c in acc), first, n)
+    return pl.to_jac(_tree_plain(pl, acc, first[..., 0], n))
+
+
+def _sum_axes(p: JacobianPoint, dim: int):
+    """(outer, n, inner, output batch shape) of a sum over batch axis dim."""
+    shape = tuple(p.x.shape[:-1])
+    dim %= len(shape)
+    outer, inner = math.prod(shape[:dim]), math.prod(shape[dim + 1:])
+    if shape[dim] == 0:
+        raise ValueError("g1_sum: no points to sum")
+    return outer, shape[dim], inner, shape[:dim] + shape[dim + 1:]
+
+
+def g1_sum_plain(p: JacobianPoint, dim: int = -1) -> JacobianPoint:
+    outer, n, inner, shape = _sum_axes(p, dim)
+    rows = JacobianPoint(*(c.reshape(outer, n, inner, NP).transpose(1, 2)
+                           .reshape(outer * inner, n, NP) for c in p))
+    while True:
+        rows = _sum_pass_plain(rows)
+        if rows.x.shape[1] == 1:
+            return _shaped(rows, shape)
+
+
+def g1_horner_plain(wsums: JacobianPoint) -> JacobianPoint:
+    pl = _plain(wsums.x.device)
+    shape = wsums.x.shape[:-2]
+    w = JacobianPoint(*(c.reshape(-1, FIXED_WINDOWS, NP) for c in wsums))
+
+    def window(j):
+        return pl.jac_to_proj(JacobianPoint(*(c[:, j] for c in w)))
+
+    acc = window(FIXED_WINDOWS - 1)
+    for j in range(FIXED_WINDOWS - 2, -1, -1):
+        for _ in range(4):
+            acc = pl.proj_double(acc)
+        acc = pl.proj_add(acc, window(j))
+    return _shaped(pl.to_jac(acc), shape)
 
 
 # ---- plain versions of the point kernels: Jacobian formulas, lazy ----
@@ -489,17 +563,20 @@ def g1_fft_stage(tables: torch.Tensor, digits: torch.Tensor, dst, n: int,
 
 
 def g1_fixed_base_mul(tables: torch.Tensor, digits) -> JacobianPoint:
-    """Per lane sum_w sign(d_w) T[lane][w][|d_w| - 1] over the 64 signed
-    digits of fr.scalar_windows_signed: the lane's base times the scalar,
-    from its fixed-base table (g1_window_table with 64 windows), Jacobian
-    out (replaces, on the FK20 path, the route of
+    """Per lane sum_w sign(d_w) T[b][w][|d_w| - 1] over the 64 signed
+    digits of fr.scalar_windows_signed, b = lane % m for m tables: the
+    lane's base times the scalar, from its fixed-base table
+    (g1_window_table with 64 windows), Jacobian out (replaces, on the FK20
+    path and the commitment, the route of
     kzg_tpu/curve/pallas_g1.py::_scalar_mul_fn)."""
     if tables.device.type == "cpu":
         return g1_fixed_base_mul_plain(tables, digits)
     check_words(tables, PW, "g1_fixed_base_mul")
     n = digits.shape[0]
-    if tuple(tables.shape) != (n, FIXED_WINDOWS, 8, PW):
-        raise ValueError("g1_fixed_base_mul: tables must be (n, 64, 8, 36)")
+    m = tables.shape[0]
+    if tuple(tables.shape[1:]) != (FIXED_WINDOWS, 8, PW) or m == 0 or n % m:
+        raise ValueError("g1_fixed_base_mul: tables must be (m, 64, 8, 36) "
+                         "with m dividing the lanes")
     _check_digits("g1_fixed_base_mul", digits, n, tables.device)
     if digits.shape[-1] != FIXED_WINDOWS:
         raise ValueError("g1_fixed_base_mul: 64 windows a lane")
@@ -511,8 +588,60 @@ def g1_fixed_base_mul(tables: torch.Tensor, digits) -> JacobianPoint:
         LAUNCHES["g1_fixed_base_mul"] += 1
         build.check(lib.kzg_g1_fixed_base_mul(
             *(c.data_ptr() for c in out), tables.data_ptr(),
-            digits.data_ptr(), n, stream_of(tables)), "g1_fixed_base_mul")
+            digits.data_ptr(), n, m, stream_of(tables)), "g1_fixed_base_mul")
     return out
+
+
+def g1_sum(p: JacobianPoint, dim: int = -1) -> JacobianPoint:
+    """The sum of the points along batch axis `dim`: (R, N) -> (R,) for
+    dim = -1, one launch when N <= SUM_RUN x SUM_THREADS, and one more for
+    the block partials of a wider row (replaces, in the port's tree sums,
+    the route of kzg_tpu/curve/pallas_g1.py::_add_fn). Infinity enters as
+    any Z == 0 and leaves as all-zero words."""
+    if p.x.device.type == "cpu":
+        return g1_sum_plain(p, dim)
+    outer, n, inner, shape = _sum_axes(p, dim)
+    rows = outer * inner
+    _check_points("g1_sum", rows * n, p)
+    span = SUM_RUN * SUM_THREADS
+    while True:
+        nb = -(-n // span)
+        out = JacobianPoint(*(torch.empty((rows * nb, NP), dtype=torch.int32,
+                                          device=p.x.device)
+                              for _ in range(3)))
+        if rows:
+            lib = build.library("g1_sum_kernels")
+            LAUNCHES["g1_sum"] += 1
+            build.check(lib.kzg_g1_sum(
+                *(c.data_ptr() for c in out), *(c.data_ptr() for c in p),
+                rows, n, inner, nb, stream_of(p.x)), "g1_sum")
+        if nb == 1:
+            return _shaped(out, shape)
+        p, n, inner = out, nb, 1
+
+
+def g1_horner(wsums: JacobianPoint) -> JacobianPoint:
+    """acc = sum_j 16^j S_j over (..., 64) LSB-first window sums ->
+    (...,): 63 x (4 doublings + 1 add) in one thread an MSM (replaces, in
+    the variable-base MSM, the route of kzg_tpu/curve/pallas_g1.py::
+    _double_fn and ::_add_fn)."""
+    if wsums.x.device.type == "cpu":
+        return g1_horner_plain(wsums)
+    shape = wsums.x.shape[:-2]
+    if wsums.x.shape[-2] != FIXED_WINDOWS:
+        raise ValueError("g1_horner: 64 window sums an MSM")
+    b = wsums.x.numel() // (FIXED_WINDOWS * NP)
+    _check_points("g1_horner", b * FIXED_WINDOWS, wsums)
+    out = JacobianPoint(*(torch.empty((b, NP), dtype=torch.int32,
+                                      device=wsums.x.device)
+                          for _ in range(3)))
+    if b:
+        lib = build.library("g1_sum_kernels")
+        LAUNCHES["g1_horner"] += 1
+        build.check(lib.kzg_g1_horner(
+            *(c.data_ptr() for c in out), *(c.data_ptr() for c in wsums), b,
+            stream_of(wsums.x)), "g1_horner")
+    return _shaped(out, shape)
 
 
 def g1_add(p: JacobianPoint, q: JacobianPoint) -> JacobianPoint:

@@ -3,25 +3,35 @@ windowed MSM of kzg_tpu/curve/msm.py:36-182):
 
     sum_i k_i P_i  =  sum_j 16^j S_j,    S_j = sum_i s_ij P_i
 
-with s_ij the signed 4-bit digits of k_i (fr.scalar_windows_signed). Each
-point builds one multiples table [0..8]P_i (7 batched adds, shared by all
-64 windows); each window sum S_j is a table lookup, with y negated for a
-negative digit, then a batched tree sum over the point axis with all 64
-windows side by side, so each tree level is one add over the whole block.
-The final combine is a 63-step Horner loop (4 doublings + 1 add per
-window) on one point per MSM. With `g1.ops_kernel` every point op is one
-launch of the point kernels.
+with s_ij the signed 4-bit digits of k_i (fr.scalar_windows_signed).
+
+Variable bases (`lin_comb_g1`): each point builds one multiples table
+[0..8]P_i (7 batched `g1_add` launches through `g1.ops_kernel`, shared
+by all 64 windows); each window sum S_j is a table lookup, with y negated
+for a negative digit, then one `g1_sum` over the point axis with all 64
+windows side by side; `g1_horner` combines the 64 sums of each MSM in one
+launch.
+
+Fixed bases (`lin_comb_fixed`, the commitment on the CRS): with the
+bases' 64-window tables (`fixed_base_tables`, built once by the caller)
+each k_i P_i is one `g1_fixed_base_mul` lane, with no doubling, and one
+`g1_sum` adds them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..field import fr
+from ..field import fp, fr
 from . import g1
+from .kernels import (
+    FIXED_WINDOWS,
+    g1_fixed_base_mul,
+    g1_horner,
+    g1_sum,
+    g1_window_table,
+)
 from .weierstrass import JacobianPoint, map_points
-
-N_WINDOWS = 64
 
 
 def tree_reduce(ops, points: JacobianPoint) -> JacobianPoint:
@@ -49,41 +59,59 @@ def _multiples_table(ops, p: JacobianPoint) -> JacobianPoint:
     return map_points(lambda *cs: torch.stack(cs), *mults)
 
 
-def window_sums(ops, points: JacobianPoint, scalars_mont) -> JacobianPoint:
-    """Per-window sums S_j = sum_i s_ij P_i. points: (N,) batch; scalars:
-    (..., N, 8) Fr Montgomery words (leading dims are independent MSMs over
-    the same points). Returns coords (..., 64, 12)."""
+def window_points(points: JacobianPoint, scalars_mont) -> JacobianPoint:
+    """s_ij P_i for every point i and window j. points: (N,) batch;
+    scalars: (..., N, 8) Fr Montgomery words (leading dims are independent
+    MSMs over the same points). Returns coords (N, ..., 64, 12)."""
     n = points.x.shape[0]
     if scalars_mont.shape[-2] != n:
         raise ValueError(f"{scalars_mont.shape[-2]} scalars for {n} points")
     digits = torch.movedim(fr.scalar_windows_signed(scalars_mont), -2, 0)
-    table = _multiples_table(ops, points)               # (9, N, 12)
+    table = _multiples_table(g1.ops_kernel, points)     # (9, N, 12)
     mag = digits.abs().long()                           # (N, ..., 64)
     lane = torch.arange(n, device=mag.device).reshape(
         (n,) + (1,) * (mag.dim() - 1))
     sel = map_points(lambda c: c[mag, lane], table)     # (N, ..., 64, 12)
-    y = ops.F.select(digits < 0, ops.F.neg(sel.y), sel.y)
-    return tree_reduce(ops, JacobianPoint(sel.x, y, sel.z))
+    return JacobianPoint(sel.x, fp.select(digits < 0, fp.neg(sel.y), sel.y),
+                         sel.z)
 
 
-def horner_windows(ops, wsums: JacobianPoint) -> JacobianPoint:
-    """acc = sum_j 16^j S_j for LSB-first window sums, coords
-    (..., 64, 12) -> (..., 12): 63 x (4 doublings + 1 add)."""
-    w = map_points(lambda c: c.movedim(-2, 0).contiguous(), wsums)
-    acc = map_points(lambda c: c[N_WINDOWS - 1], w)
-    for j in range(N_WINDOWS - 2, -1, -1):
-        for _ in range(4):
-            acc = ops.double(acc)
-        acc = ops.add(acc, map_points(lambda c: c[j], w))
-    return acc
+def window_sums(points: JacobianPoint, scalars_mont) -> JacobianPoint:
+    """Per-window sums S_j = sum_i s_ij P_i, coords (..., 64, 12): one
+    g1_sum over the point axis."""
+    return g1_sum(window_points(points, scalars_mont), dim=0)
 
 
 def lin_comb_g1(points: JacobianPoint, scalars_mont) -> JacobianPoint:
     """MSM: sum_i scalars[..., i] * points[i]. points: (N,) G1 batch;
     scalars: (..., N, 8) Fr Montgomery words. Returns coords (..., 12)."""
-    ops = g1.ops_kernel
-    return horner_windows(ops, window_sums(ops, points, scalars_mont))
+    return g1_horner(window_sums(points, scalars_mont))
+
+
+def fixed_base_tables(bases: JacobianPoint) -> torch.Tensor:
+    """The 64-window fixed-base tables of (..., N) bases, int32
+    (..., N, 64, 8, 36): entry m of window w of base B is (m+1) 16^w B
+    (g1_window_table; 144 bytes an entry, 604 MB at 8192 bases)."""
+    shape = tuple(bases.x.shape[:-1])
+    flat = map_points(lambda c: c.reshape(-1, fp.N_WORDS).contiguous(),
+                      bases)
+    return g1_window_table(flat, FIXED_WINDOWS).reshape(
+        shape + (FIXED_WINDOWS, 8, 3 * fp.N_WORDS))
+
+
+def lin_comb_fixed(tables: torch.Tensor, scalars_mont) -> JacobianPoint:
+    """MSM on fixed bases: sum_i scalars[..., i] * B_i from the bases'
+    64-window tables (N, 64, 8, 36) (fixed_base_tables). scalars:
+    (..., N, 8) Fr Montgomery words. Returns coords (..., 12)."""
+    digits = fr.scalar_windows_signed(scalars_mont)
+    if digits.shape[-2] != tables.shape[0]:
+        raise ValueError(f"{digits.shape[-2]} scalars for "
+                         f"{tables.shape[0]} bases")
+    prods = g1_fixed_base_mul(tables, digits.reshape(-1, FIXED_WINDOWS))
+    return g1_sum(map_points(
+        lambda c: c.reshape(digits.shape[:-1] + (fp.N_WORDS,)), prods))
 
 
 def sum_g1(points: JacobianPoint) -> JacobianPoint:
-    return tree_reduce(g1.ops_kernel, points)
+    """The sum of a (N, ...) point batch along axis 0."""
+    return g1_sum(points, dim=0)

@@ -13,7 +13,7 @@ import torch
 
 from . import limbs
 from .constants import FR_MODULUS
-from .kernels import mont_mul
+from .kernels import fr_signed_windows, mont_mul
 from .limbs import FieldSpec
 
 SPEC = FieldSpec(name="Fr", modulus=FR_MODULUS, n_words=8)
@@ -74,26 +74,12 @@ def from_mont(a) -> torch.Tensor:
     return mul(a, one)
 
 
-# bias for signed-window recoding: 63 low nibbles of 8 (top nibble 0)
-_SIGNED_WINDOW_BIAS = int("8" * 63, 16)
-
-
 def scalar_windows_signed(a_mont) -> torch.Tensor:
     """Signed 4-bit windows of Montgomery-form scalars: int32 (..., 64)
     LSB-first digits s with sum_j s_j 16^j == a, s_j in [-8, 7] for
-    j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130).
-
-    Adding 0x0888...8 (63 eights) shifts every low digit by +8 with the
-    carries folded in; a < 2^255 keeps the biased sum below 2^256."""
-    canon = limbs.words_to_limbs(from_mont(a_mont))      # (..., 16)
-    bias = torch.tensor(limbs.int_to_limbs(_SIGNED_WINDOW_BIAS, 16),
-                        dtype=torch.int64, device=canon.device)
-    biased, _ = limbs.normalize(canon + bias)
-    shifts = torch.tensor([0, 4, 8, 12], dtype=torch.int64,
-                          device=canon.device)
-    wins = ((biased.unsqueeze(-1) >> shifts) & 0xF).flatten(-2)
-    wins[..., :63] -= 8
-    return wins.to(torch.int32)
+    j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130): from_mont on
+    K1, then the recoding kernel fr_signed_windows."""
+    return fr_signed_windows(from_mont(a_mont))
 
 
 # ---- host conversions ----

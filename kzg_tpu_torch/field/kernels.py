@@ -1,6 +1,6 @@
 """Field kernels K1 (`mont_mul`, and its `fr_scale` exit form), K2
-(`fr_butterfly_stage`), `fr_dif_stage` and `butterfly`, with their plain
-PyTorch versions.
+(`fr_butterfly_stage`), `fr_dif_stage`, `butterfly` and the digit
+recoding `fr_signed_windows`, with their plain PyTorch versions.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel (csrc/fr_kernels.cu) or raises. Each
@@ -16,9 +16,12 @@ from . import limbs
 from .limbs import FieldSpec
 
 LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
-            "fr_dif_stage": 0, "butterfly": 0}
+            "fr_dif_stage": 0, "butterfly": 0, "fr_signed_windows": 0}
 
 FR_WORDS = 8
+SIGNED_WINDOWS = 64
+# bias for signed-window recoding: 63 low nibbles of 8 (top nibble 0)
+_SIGNED_WINDOW_BIAS = int("8" * 63, 16)
 
 
 def reset_launches() -> None:
@@ -229,3 +232,39 @@ def fr_dif_stage(spec: FieldSpec, x, roots, log_half: int,
             x.data_ptr(), roots.data_ptr(), log_n, log_half, stride, total,
             stream_of(x)), "fr_dif_stage")
     return x
+
+
+def fr_signed_windows_plain(canon) -> torch.Tensor:
+    canon = limbs.words_to_limbs(canon)                  # (..., 16)
+    bias = torch.tensor(limbs.int_to_limbs(_SIGNED_WINDOW_BIAS, 16),
+                        dtype=torch.int64, device=canon.device)
+    biased, _ = limbs.normalize(canon + bias)
+    shifts = torch.tensor([0, 4, 8, 12], dtype=torch.int64,
+                          device=canon.device)
+    wins = ((biased.unsqueeze(-1) >> shifts) & 0xF).flatten(-2)
+    wins[..., :SIGNED_WINDOWS - 1] -= 8
+    return wins.to(torch.int32)
+
+
+def fr_signed_windows(canon) -> torch.Tensor:
+    """Signed 4-bit windows of canonical Fr words (..., 8): int32
+    (..., 64) LSB-first digits s with sum_j s_j 16^j == a, s_j in [-8, 7]
+    for j < 63 and s_63 in [0, 8]. Adding 0x0888...8 (63 eights) shifts
+    every low digit by +8 with the carries folded in; a < 2^255 keeps the
+    biased sum below 2^256. One launch (the recoding in front of the G1
+    scalar products; plain tensor code in kzg_tpu/field/fr.py:109-130)."""
+    if canon.device.type == "cpu":
+        return fr_signed_windows_plain(canon)
+    canon = canon.contiguous()
+    check_words(canon, FR_WORDS, "fr_signed_windows")
+    out = torch.empty(canon.shape[:-1] + (SIGNED_WINDOWS,),
+                      dtype=torch.int32, device=canon.device)
+    n = canon.numel() // FR_WORDS
+    if n:
+        lib = build.library("fr_kernels")
+        LAUNCHES["fr_signed_windows"] += 1
+        build.check(lib.kzg_fr_signed_windows(out.data_ptr(),
+                                              canon.data_ptr(), n,
+                                              stream_of(canon)),
+                    "fr_signed_windows")
+    return out

@@ -5,9 +5,9 @@ The polynomial splits into l strided sub-polynomials; each contributes a
 Toeplitz product against its own strided CRS slice, and the l products
 sum into one hExtFFT. All l are batched: one Fr FFT launch per stage, one
 fixed-base launch for the pointwise products (on tables built with the
-settings), a log2(l) tree sum (one `g1_add` launch per level), then the
-G1 FFTs (one dense stage each at 2k <= 128 points). The per-offset part-1
-tables are also built as one batch.
+settings), one `g1_sum` launch for the l-way sum, then the G1 FFTs (one
+dense stage each at 2k <= 128 points). The per-offset part-1 tables are
+also built as one batch.
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ import torch
 
 from ..curve import g1
 from ..curve.fft_g1 import fft_g1, reverse_bit_order_g1
-from ..curve.msm import tree_reduce
+from ..curve.kernels import g1_sum
+from ..curve.msm import fixed_base_tables
 from ..curve.weierstrass import JacobianPoint
 from ..field import fr
 from ..kzg.settings import KZGSettings
 from .toeplitz import (
     concat_points,
-    fixed_base_tables,
     toeplitz_part1,
     toeplitz_part2,
     toeplitz_part3,
@@ -99,9 +99,8 @@ class FK20MultiSettings:
         l = self.chunk_len
         tcs = torch.stack([toeplitz_coeffs_step_strided(reduced, i, l)
                            for i in range(l)])              # (l, 2k, 8)
-        h_ext_fft = tree_reduce(
-            g1.ops_kernel,
-            toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_tables))
+        h_ext_fft = g1_sum(
+            toeplitz_part2(self.ks.fs, tcs, self.x_ext_fft_tables), dim=0)
         return toeplitz_part3(self.ks.fs, h_ext_fft)
 
     def fk20_multi(self, poly) -> JacobianPoint:

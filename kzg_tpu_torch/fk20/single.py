@@ -18,11 +18,12 @@ import torch
 
 from ..curve import g1
 from ..curve.fft_g1 import fft_g1, reverse_bit_order_g1
+from ..curve.msm import fixed_base_tables
 from ..curve.weierstrass import JacobianPoint, map_points
 from ..field import fr
 from ..kzg.settings import KZGSettings
-from .toeplitz import concat_points, fixed_base_tables, toeplitz_part1, \
-    toeplitz_part2, toeplitz_part3
+from .toeplitz import concat_points, toeplitz_part1, toeplitz_part2, \
+    toeplitz_part3
 
 
 def toeplitz_coeffs_step(poly):

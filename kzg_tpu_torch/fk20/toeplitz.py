@@ -1,7 +1,8 @@
 """Toeplitz matrix-by-CRS-vector products in Fourier space, the FK20
 core (reference: toeplitzPart1/2/3, fk20_single.go:40-87):
     T x = IFFT_G1( FFT_Fr(c) o FFT_G1([x; 0]) )[:n]
-Part 1 is a precompute, and with it the fixed-base tables of its points;
+Part 1 is a precompute, and with it the fixed-base tables of its points
+(`curve.msm.fixed_base_tables`);
 part 2 one batched fixed-base product (`g1_fixed_base_mul`, no doubling),
 part 3 one inverse G1 FFT. Every part takes leading batch axes.
 """
@@ -12,7 +13,7 @@ import torch
 
 from ..curve import g1
 from ..curve.fft_g1 import fft_g1
-from ..curve.kernels import FIXED_WINDOWS, g1_fixed_base_mul, g1_window_table
+from ..curve.kernels import FIXED_WINDOWS, g1_fixed_base_mul
 from ..curve.weierstrass import JacobianPoint, map_points
 from ..field import fp, fr
 from ..ntt.domain import FFTSettings
@@ -28,17 +29,6 @@ def toeplitz_part1(fs: FFTSettings, x: JacobianPoint) -> JacobianPoint:
     n = x.x.shape[-2]
     inf = g1.infinity(tuple(x.x.shape[:-2]) + (n,), x.x.device)
     return fft_g1(fs, concat_points(x, inf))
-
-
-def fixed_base_tables(x_ext_fft: JacobianPoint) -> torch.Tensor:
-    """The fixed-base tables of part 1's (..., 2k) points, int32
-    (..., 2k, 64, 8, 36): entry m of window w of point B is (m+1) 16^w B
-    (g1_window_table; 604 MB at 8192 points)."""
-    shape = tuple(x_ext_fft.x.shape[:-1])
-    flat = map_points(lambda c: c.reshape(-1, fp.N_WORDS).contiguous(),
-                      x_ext_fft)
-    return g1_window_table(flat, FIXED_WINDOWS).reshape(
-        shape + (FIXED_WINDOWS, 8, 3 * fp.N_WORDS))
 
 
 def toeplitz_part2(fs: FFTSettings, toeplitz_coeffs,

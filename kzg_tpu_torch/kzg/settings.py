@@ -9,11 +9,13 @@ methods) and G2 come with a later slice.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import poly
-from ..curve.msm import lin_comb_g1
-from ..curve.weierstrass import JacobianPoint, map_points
+from ..curve.msm import fixed_base_tables, lin_comb_fixed
+from ..curve.weierstrass import JacobianPoint
 from ..field import fr
 from ..field.constants import FR_MODULUS
 from ..ntt.domain import FFTSettings
@@ -25,15 +27,22 @@ class KZGSettings:
         self.fs = fs
         self.secret_g1 = secret_g1
 
+    @functools.cached_property
+    def secret_g1_tables(self) -> torch.Tensor:
+        """Fixed-base tables of the CRS, (N, 64, 8, 36) int32: entry m of
+        window w of base i is (m+1) 16^w [s^i]_1. Built at the first
+        commitment and kept (301,989,888 bytes at 4096 points)."""
+        return fixed_base_tables(self.secret_g1)
+
     def commit_to_poly(self, coeffs) -> JacobianPoint:
         """MSM of the CRS against the coefficients (..., n, 8) (reference:
-        CommitToPoly, kzg_single_proofs.go:17-20)."""
+        CommitToPoly, kzg_single_proofs.go:17-20): one fixed-base product
+        on the first n bases' tables and one row sum."""
         n = coeffs.shape[-2]
         if n > self.secret_g1.x.shape[0]:
             raise ValueError(f"{n} coefficients for a "
                              f"{self.secret_g1.x.shape[0]}-point CRS")
-        return lin_comb_g1(map_points(lambda c: c[:n], self.secret_g1),
-                           coeffs)
+        return lin_comb_fixed(self.secret_g1_tables[:n], coeffs)
 
     def commit_to_eval_poly(self, evals) -> JacobianPoint:
         """Inverse FFT to coefficient form, then commit (reference:

@@ -101,3 +101,29 @@ def test_ladder_layout_constants():
     table = source("g1_table_kernels.cu")
     assert f"constexpr int kParts = {gk.FIXED_PARTS};" in table
     assert f"constexpr int kWindows = {gk.FIXED_WINDOWS};" in table
+
+
+@pytest.mark.parametrize("lib,fn,argc", [
+    ("g1_sum_kernels", "kzg_g1_sum", 11),
+    ("g1_sum_kernels", "kzg_g1_horner", 8),
+    ("g1_table_kernels", "kzg_g1_fixed_base_mul", 8)])
+def test_row_sum_entry_points(lib, fn, argc):
+    """g1_sum (rows, n, inner, blocks a row), g1_horner (MSMs) and the
+    fixed-base product with its base count are bound with their C
+    argument counts, and build.py compiles their source."""
+    assert lib in build.SOURCES
+    assert len(build.SIGNATURES[lib][fn]) == argc
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       source(f"{lib}.cu")).group(1).split(",")
+    assert len(params) == argc
+
+
+def test_sum_layout_constants():
+    """g1_sum's block size and run length, which the plain version's
+    partition follows, and g1_horner's window count equal the wrapper's."""
+    from kzg_tpu_torch.curve import kernels as gk
+
+    text = source("g1_sum_kernels.cu")
+    assert f"constexpr int kThreads = {gk.SUM_THREADS};" in text
+    assert f"constexpr int kRun = {gk.SUM_RUN};" in text
+    assert f"constexpr int kWindows = {gk.FIXED_WINDOWS};" in text

@@ -86,7 +86,8 @@ def test_scalar_mul_wrapper_takes_plain_on_cpu():
     assert torch.equal(out.x, gk.g1_scalar_mul_plain(pts, digits).x)
     assert gk.LAUNCHES == {"g1_scalar_mul": 0, "g1_glv_butterfly": 0,
                            "g1_add": 0, "g1_double": 0, "g1_window_table": 0,
-                           "g1_fft_stage": 0, "g1_fixed_base_mul": 0}
+                           "g1_fft_stage": 0, "g1_fixed_base_mul": 0,
+                           "g1_sum": 0, "g1_horner": 0}
     meta = JacobianPoint(*(torch.empty_like(c, device="meta") for c in pts))
     with pytest.raises(ValueError, match="CUDA"):
         gk.g1_scalar_mul(meta, digits.to("meta"))

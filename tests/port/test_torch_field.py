@@ -78,6 +78,18 @@ def test_fp_inv_sqr_match_reference():
                        convert.words_from_ref(np.asarray(jfp.inv(ja)), CPU))
 
 
+def test_signed_windows_edge_scalars():
+    """The recoding of canonical words at the ends of Fr's range: the
+    digits rebuild the scalar, and each lies in its window's range."""
+    r = fr.SPEC.modulus
+    vals = [0, 1, 7, 8, 9, r - 1, r - 2, (1 << 252) - 1, 0x888 * 16 ** 60,
+            int("8" * 63, 16) % r]
+    got = kernels.fr_signed_windows(fr.SPEC.words(vals, CPU))
+    for v, row in zip(vals, got.tolist()):
+        assert sum(d << (4 * j) for j, d in enumerate(row)) == v
+        assert all(-8 <= d <= 7 for d in row[:63]) and 0 <= row[63] <= 8
+
+
 def test_scalar_windows_signed_matches_reference():
     (a, _), (ja, _), (av, _) = operands("Fr", seed=5)
     got = fr.scalar_windows_signed(a)
@@ -154,9 +166,11 @@ def test_wrappers_refuse_non_cpu_tensors():
         kernels.fr_dif_stage(fr.SPEC, meta.reshape(1, 4, 8), meta, 0, 1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.butterfly(fr.SPEC, meta, meta, meta[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_signed_windows(meta)
     assert kernels.LAUNCHES == {"mont_mul": 0, "fr_scale": 0,
                                 "fr_butterfly_stage": 0, "fr_dif_stage": 0,
-                                "butterfly": 0}
+                                "butterfly": 0, "fr_signed_windows": 0}
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])

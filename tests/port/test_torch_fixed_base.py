@@ -23,7 +23,7 @@ from port_helpers import (
 
 from kzg_tpu.field import fr as jfr
 from kzg_tpu_torch import convert
-from kzg_tpu_torch.curve import g1
+from kzg_tpu_torch.curve import g1, msm
 from kzg_tpu_torch.curve import kernels as gk
 from kzg_tpu_torch.curve.weierstrass import JacobianPoint
 from kzg_tpu_torch.field import fp, fr
@@ -94,7 +94,7 @@ def test_toeplitz_part2_matches_mul():
                           for c in g1.from_affine_ints(aff, CPU)))
     coeffs = fr.from_int(random_ints(rng, 8, R), CPU).reshape(2, 4, 8)
     gk.reset_launches()
-    tables = toeplitz.fixed_base_tables(pts)
+    tables = msm.fixed_base_tables(pts)
     assert tables.shape == (2, 4, 64, 8, 36)
     got = toeplitz.toeplitz_part2(fs, coeffs, tables)
     assert got.x.shape == (2, 4, 12)
