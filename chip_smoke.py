@@ -19,9 +19,18 @@ Phases; any failure raises and the script exits non-zero with no result:
      of 128 rows, the commitment's 4096 lanes and the MSM's 64 windows of
      4096 points, and on edge rows (one point, odd counts, a row all at
      infinity in both encodings, P with -P, P with P); g1_horner for one
-     and three MSMs);
-  3. Fr FFT at 2^20: forward then inverse on the kernels, the roundtrip,
-     and a few outputs against direct evaluation with Python ints;
+     and three MSMs; K2 on its per-stage route (the port's earlier Fr
+     FFT, kept here) at 2^12; the field routes: fr_add_sub (Fr and Fp, add,
+     sub, neg, both broadcast forms), fr_pow (Fr at 8192 lanes with
+     r-2, 0, 1 and a random exponent, Fp with p-2), fr_batch_inv (8192
+     lanes in one launch, 2^16 in three, zero lanes mixed in),
+     fr_fft_block (the product tree's batches 32 x 256 ... 1 x 8192 and
+     FK20's 64 x 128, forward and inverse, also against K2's route, in
+     at most 2 launches; 8192 in 4-stage tiles) and fr_zero_poly_leaves
+     (64 full leaves; full, partial and padding leaves));
+  3. Fr FFT at 2^20 on fr_fft_block (at most 3 launches): forward then
+     inverse, the roundtrip, a few outputs against direct evaluation
+     with Python ints, and the forward against K2's per-stage route;
   4. the proof path at the PeerDAS shape (EIP-7594: a 4096-element blob
      extended to 8192, 64-element cells, 128 cell proofs): device CRS of
      4096 points, FK20MultiSettings(n2=8192, l=64) with its fixed-base
@@ -49,15 +58,18 @@ Phases; any failure raises and the script exits non-zero with no result:
      the producer's extension with the other 64 cells' 4096 values
      garbled -> recover_poly_from_samples -> inverse FFT (top half zero)
      -> commit_to_poly -> fk20_multi_da_optimized. The launch counters
-     of the path's kernels must be > 0 and g1_double's 0; the values
-     must equal the extension, the commitment and the 128 proofs the
-     producer's. At
-     n = 1024 with half missing, the legacy erasure_code_recover must
-     equal recover_poly_from_samples;
-  7. the proof API at full width: compute_proof_single on the blob's 4096
-     coefficients ("auto" and "serial" against the host oracle),
-     compute_proof_multi for one cell's coset against that cell's FK20
-     proof, and FK20SingleSettings on an 8192-point CRS with
+     of the path's kernels must be > 0 and g1_double's and
+     fr_butterfly_stage's 0; the values must equal the extension, the
+     commitment and the 128 proofs the producer's. The recovery alone,
+     counted: no fr_butterfly_stage, fewer than 150 mont_mul launches and
+     at most 2 log2 n + 2 of one lane (no Fermat ladder); an 8192-point
+     FFT in at most 2 launches. At n = 1024 with half missing, the legacy
+     erasure_code_recover must equal recover_poly_from_samples;
+  7. the proof API at full width, its launches counted as a path (it
+     must launch fr_add_sub and fr_pow): compute_proof_single on the
+     blob's 4096 coefficients ("auto" and "serial" against the host
+     oracle), compute_proof_multi for one cell's coset against that
+     cell's FK20 proof, and FK20SingleSettings on an 8192-point CRS with
      da_using_fk20 (8192 proofs, its launches counted as a path), eight
      of them against the host oracle;
   8. times on the card after warm-up: whole calls with CUDA events,
@@ -68,9 +80,14 @@ Phases; any failure raises and the script exits non-zero with no result:
      Horner loop of 315 one-lane launches, against the fixed-base commit;
      FK20's 6-launch g1_add tree against g1_sum), the variable-base MSM at
      4096 points, the 8192-point G1 FFT under several radix plans with
-     each stage's time, the product's dependent latency (a one-lane K3
-     launch), and the FK20, commit and recovery calls' device activity
-     from torch.profiler traces.
+     each stage's time, the Fp product's dependent latency (a one-lane
+     K3 launch) and the Fr product's (a one-lane fr_pow ladder), the
+     FK20, commit and recovery calls' device activity from torch.profiler
+     traces (the recovery's at most 400 device operations), and the
+     routes of K1 and K2 beside the new kernels in turns: K2's per-stage
+     FFT against fr_fft_block at 1 x 8192 and 2^20, the one-lane ladder
+     of K1 launches against fr_pow, the batch inversion on K1 scans
+     against fr_batch_inv, the 64-step leaf loop against fr_zero_poly_leaves.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -80,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -96,11 +114,16 @@ SECRET = 1927409816240961209460912649124
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 OUT_DIR = "chiprun_out"
-# the kernels every FK20 multi call runs (the blob's inverse FFT, part 2's
-# digits and fixed-base product, the l-way sum, the dense G1 FFTs)
-PATH_KERNELS = ("mont_mul", "fr_scale", "fr_butterfly_stage",
-                "fr_signed_windows", "g1_fixed_base_mul", "g1_window_table",
-                "g1_fft_stage", "g1_sum")
+# the kernels every FK20 multi call runs (the blob's inverse FFT and the
+# Toeplitz coefficients' FFTs on fr_fft_block, part 2's digits and
+# fixed-base product, the l-way sum, the dense G1 FFTs)
+PATH_KERNELS = ("mont_mul", "fr_fft_block", "fr_signed_windows",
+                "g1_fixed_base_mul", "g1_window_table", "g1_fft_stage",
+                "g1_sum")
+# and the DAS extension's (the producer path)
+EXTENSION_KERNELS = ("fr_dif_stage", "fr_butterfly_stage", "fr_scale")
+# and the recovery's (the reconstruction path)
+RECOVERY_KERNELS = ("fr_zero_poly_leaves", "fr_batch_inv")
 
 
 def log(*a):
@@ -211,6 +234,7 @@ def plain_path():
     script's reference run; the package itself never does this)."""
     from kzg_tpu_torch.curve import fft_g1, g1, msm
     from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.das import zero_poly
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
     from kzg_tpu_torch.fk20 import multi, toeplitz
@@ -226,9 +250,15 @@ def plain_path():
 
     swaps = [(fr, "mont_mul", fk.mont_mul_plain),
              (fr, "fr_signed_windows", fk.fr_signed_windows_plain),
+             (fr, "fr_add_sub", fk.fr_add_sub_plain),
+             (fr, "fr_pow", fk.fr_pow_plain),
+             (fr, "fr_batch_inv", fk.fr_batch_inv_plain),
              (fp, "mont_mul", fk.mont_mul_plain),
-             (fft_fr, "fr_butterfly_stage", stage),
-             (fft_fr, "fr_scale", fk.fr_scale_plain),
+             (fp, "fr_add_sub", fk.fr_add_sub_plain),
+             (fp, "fr_pow", fk.fr_pow_plain),
+             (fft_fr, "fr_fft_block", fk.fr_fft_block_plain),
+             (zero_poly, "fr_zero_poly_leaves",
+              fk.fr_zero_poly_leaves_plain),
              (das, "fr_dif_stage", dif),
              (das, "fr_butterfly_stage", stage),
              (das, "fr_scale", fk.fr_scale_plain),
@@ -324,9 +354,11 @@ def main() -> int:
     from kzg_tpu_torch.curve.msm import tree_reduce
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
     from kzg_tpu_torch.das.legacy import erasure_code_recover
+    from kzg_tpu_torch.das import zero_poly
     from kzg_tpu_torch.das.recovery import recover_poly_from_samples
     from kzg_tpu_torch.field import fp, fr
     from kzg_tpu_torch.field import kernels as fk
+    from kzg_tpu_torch.field import limbs
     from kzg_tpu_torch.fk20 import multi as fk20_multi
     from kzg_tpu_torch.fk20 import toeplitz
     from kzg_tpu_torch.fk20.multi import FK20MultiSettings
@@ -369,7 +401,28 @@ def main() -> int:
         sc = fr.from_int(random_fr_ints(rng, n, r), dev)
         return g1.mul(gen, sc)
 
+    def stage_fft(x, roots, max_width, inv_scale=None, plain=False):
+        """K2's per-stage route of the Fr FFT (the port's before
+        fr_fft_block, kept here to hold K2 and to time it beside it): the bit
+        reversal, a clone, one fr_butterfly_stage launch a stage, and for
+        an inverse one fr_scale."""
+        n_ = x.shape[-2]
+        y = brp_permute(x, axis=-2).reshape(-1, n_, fr.N_WORDS).clone(
+            memory_format=torch.contiguous_format)
+        for s_ in range(1, n_.bit_length()):
+            if plain:
+                y = fk.fr_butterfly_stage_plain(fr.SPEC, y, roots, s_ - 1,
+                                                max_width >> s_)
+            else:
+                fk.fr_butterfly_stage(fr.SPEC, y, roots, s_ - 1,
+                                      max_width >> s_)
+        if inv_scale is not None:
+            c_ = fr.from_int(inv_scale, x.device)
+            y = (fk.fr_scale_plain if plain else fk.fr_scale)(fr.SPEC, y, c_)
+        return y
+
     checks = {}
+    ab = {}
     for spec in (fr.SPEC, fp.SPEC):
         n = 1 << 16
         m = spec.modulus
@@ -377,6 +430,7 @@ def main() -> int:
         av = random_fr_ints(rng, n - len(near), m) + near
         bv = random_fr_ints(rng, n - len(near), m) + near[::-1]
         a, b = spec.encode(av, dev), spec.encode(bv, dev)
+        ab[spec.name] = (a, b, av, bv)
         got, want = fk.mont_mul(spec, a, b), fk.mont_mul_plain(spec, a, b)
         check(same(got, want), f"mont_mul {spec.name} differs")
         checks[f"mont_mul_{spec.name}"] = max_abs_err(got, want)
@@ -428,12 +482,17 @@ def main() -> int:
         "digits rebuild the scalars")
 
     for inverse in (False, True):
-        got = fft(fs12, x12, inverse)
-        with plain_path():
-            want = fft(fs12, x12, inverse)
+        roots12 = (fs12.reverse_roots_of_unity if inverse
+                   else fs12.expanded_roots_of_unity)
+        sc12 = pow(1 << 12, -1, r) if inverse else None
+        got = stage_fft(x12, roots12, 1 << 12, sc12)
+        want = stage_fft(x12, roots12, 1 << 12, sc12, plain=True)
         check(same(got, want), f"FFT 2^12 inverse={inverse} differs")
+        check(same(got[0], fft(fs12, x12, inverse)),
+              f"K2's FFT 2^12 inverse={inverse} differs from fr_fft_block's")
         checks[f"fr_butterfly_stage_{int(inverse)}"] = max_abs_err(got, want)
-    log("K2 fr_butterfly_stage: whole Fr FFT 2^12 fwd+inv bit-exact")
+    log("K2 fr_butterfly_stage: whole Fr FFT 2^12 fwd+inv on one launch a "
+        "stage bit-exact, and equal to fft() on fr_fft_block")
 
     n3 = 8192
     base = fp_pts(n3)
@@ -668,11 +727,139 @@ def main() -> int:
                                      max_abs_err(got, want))
     log("fr_dif_stage: 4 x 4096 Fr, widest and narrowest levels bit-exact")
 
+    # ---- the routes of K1 and K2 (csrc/fr_route_kernels.cu) ----
+    # fr_add_sub: Fr and Fp at K1's 2^16 lanes with the edge values, b
+    # one element, and a (one element) broadcast against b
+    checks["fr_add_sub"] = 0
+    for spec in (fr.SPEC, fp.SPEC):
+        a, b, av, bv = ab[spec.name]
+        m = spec.modulus
+        for op in ("add", "sub", "neg"):
+            cases = ([(a, None)] if op == "neg"
+                     else [(a, b), (a, b[-3]), (b[5], a)])
+            for x_, y_ in cases:
+                got = fk.fr_add_sub(spec, op, x_, y_)
+                want = fk.fr_add_sub_plain(spec, op, x_, y_)
+                check(same(got, want), f"fr_add_sub {spec.name} {op} differs")
+                checks["fr_add_sub"] = max(checks["fr_add_sub"],
+                                           max_abs_err(got, want))
+        lanes = [0, 1, len(av) - 8, len(av) - 5, len(av) - 2, len(av) - 1]
+        got = spec.decode(fk.fr_add_sub(spec, "sub", a, b)[lanes])
+        check([int(v) for v in got] == [(av[i] - bv[i]) % m for i in lanes],
+              f"fr_add_sub {spec.name} disagrees with Python ints")
+    log("fr_add_sub: Fr and Fp add/sub/neg at 2^16 lanes bit-exact, same "
+        "shape and both broadcast forms; edge lanes equal Python ints")
+
+    # fr_pow: Fr at 8192 lanes (the edge values among them) with r - 2,
+    # 0, 1 and a random exponent; Fp with p - 2
+    checks["fr_pow"] = 0
+    for spec, exps in ((fr.SPEC, (r - 2, 0, 1, random_fr_ints(rng, 1, r)[0])),
+                       (fp.SPEC, (fp.SPEC.modulus - 2,))):
+        a, _, av, _ = ab[spec.name]
+        a8 = torch.cat((a[:8184], a[-8:]))
+        for e in exps:
+            got = fk.fr_pow(spec, a8, e)
+            want = fk.fr_pow_plain(spec, a8, e)
+            check(same(got, want), f"fr_pow {spec.name} differs")
+            checks["fr_pow"] = max(checks["fr_pow"], max_abs_err(got, want))
+            check([int(v) for v in spec.decode(got[-8:])]
+                  == [pow(v, e, spec.modulus) for v in av[-8:]],
+                  f"fr_pow {spec.name} disagrees with Python ints")
+    log("fr_pow: Fr at 8192 lanes with r-2, 0, 1 and a random exponent, Fp "
+        "with p-2, bit-exact; the edge lanes equal Python ints")
+
+    # fr_batch_inv: 8192 lanes (one launch) and 2^16 (three), zero lanes
+    # mixed in
+    checks["fr_batch_inv"] = 0
+    for n_inv, want_launches in ((8192, 1), (1 << 16, 3)):
+        vi = random_fr_ints(rng, n_inv, r)
+        for k in list(range(0, n_inv, 97)) + [1, 31, 32, n_inv - 1]:
+            vi[k] = 0
+        xi = fr.from_int(vi, dev)
+        before = fk.LAUNCHES["fr_batch_inv"]
+        got = fk.fr_batch_inv(fr.SPEC, xi)
+        check(fk.LAUNCHES["fr_batch_inv"] - before == want_launches,
+              f"fr_batch_inv at {n_inv} lanes: not {want_launches} launches")
+        want = fk.fr_batch_inv_plain(fr.SPEC, xi)
+        check(same(got, want), f"fr_batch_inv {n_inv} differs")
+        checks["fr_batch_inv"] = max(checks["fr_batch_inv"],
+                                     max_abs_err(got, want))
+        lanes = [0, 1, 2, 31, 32, 33, n_inv - 2, n_inv - 1]
+        check([int(v) for v in fr.to_int(got[lanes])]
+              == [pow(vi[i], -1, r) if vi[i] else 0 for i in lanes],
+              f"fr_batch_inv {n_inv} disagrees with Python ints")
+        if n_inv == 8192:
+            inv_in = xi
+    log("fr_batch_inv: 8192 lanes (1 launch) and 2^16 (3 launches) with zero "
+        "lanes bit-exact; spot lanes equal Python ints")
+
+    # fr_fft_block: the product tree's batches (32 x 256 ... 1 x 8192) and
+    # FK20's 64 x 128, forward and inverse (scaled in the last pass),
+    # against the plain passes and K2's per-stage route; at 8192 also a
+    # plan of 4-stage tiles (4 passes)
+    checks["fr_fft_block"] = 0
+    for rows_, width in ((32, 256), (16, 512), (8, 1024), (4, 2048),
+                         (2, 4096), (1, 8192), (64, 128)):
+        xf = fr.from_int(random_fr_ints(rng, rows_ * width, r), dev).reshape(
+            rows_, width, 8)
+        for inverse in (False, True):
+            roots_ = (fs13.reverse_roots_of_unity if inverse
+                      else fs13.expanded_roots_of_unity)
+            sc = pow(width, -1, r) if inverse else None
+            before = fk.LAUNCHES["fr_fft_block"]
+            got = fk.fr_fft_block(fr.SPEC, xf, roots_, 8192, sc)
+            passes = fk.LAUNCHES["fr_fft_block"] - before
+            check(passes == len(fk.fft_plan(width.bit_length() - 1)) <= 2,
+                  f"fr_fft_block {rows_} x {width}: {passes} launches")
+            want = fk.fr_fft_block_plain(fr.SPEC, xf, roots_, 8192, sc)
+            check(same(got, want), f"fr_fft_block {rows_} x {width} "
+                  f"inverse={inverse} differs from its plain version")
+            check(same(got, stage_fft(xf, roots_, 8192, sc)),
+                  f"fr_fft_block {rows_} x {width} inverse={inverse} differs "
+                  "from K2's per-stage route")
+            checks["fr_fft_block"] = max(checks["fr_fft_block"],
+                                         max_abs_err(got, want))
+        if width == 8192:
+            got = fk.fr_fft_block(fr.SPEC, xf, fs13.expanded_roots_of_unity,
+                                  8192, None, 4)
+            check(same(got, fk.fr_fft_block_plain(
+                fr.SPEC, xf, fs13.expanded_roots_of_unity, 8192)),
+                "fr_fft_block 8192 in 4-stage tiles differs")
+            fft_in = xf
+    log("fr_fft_block: 32 x 256 ... 1 x 8192 and 64 x 128, fwd and inverse, "
+        "bit-exact against the plain passes and K2's route, at most 2 "
+        "launches; 8192 in 4-stage tiles (4 passes) bit-exact")
+
+    # fr_zero_poly_leaves: 64 full leaves (4096 of 8192 missing), and 130
+    # missing (2 full leaves, a partial one, a padding leaf)
+    checks["fr_zero_poly_leaves"] = 0
+    for m_miss in (4096, 130):
+        miss = np.sort(rng.choice(8192, size=m_miss, replace=False))
+        idx_, valid_, g_ = zero_poly.leaf_layout(fs13, miss, 8192, 1)
+        got = fk.fr_zero_poly_leaves(fr.SPEC, fs13.expanded_roots_of_unity,
+                                     idx_, valid_)
+        want = fk.fr_zero_poly_leaves_plain(
+            fr.SPEC, fs13.expanded_roots_of_unity, idx_, valid_)
+        check(same(got, want), f"fr_zero_poly_leaves ({g_} leaves, "
+              f"{m_miss} factors) differs")
+        checks["fr_zero_poly_leaves"] = max(checks["fr_zero_poly_leaves"],
+                                            max_abs_err(got, want))
+        if m_miss == 4096:
+            leaves_in = (idx_, valid_)
+        else:
+            check(fr.to_int(got[3]).tolist() == [1] + [0] * 127,
+                  "the padding leaf is not 1")
+    log("fr_zero_poly_leaves: 64 full leaves, and 2 full + 1 partial + 1 "
+        "padding leaf, bit-exact; the padding leaf is 1")
+
     # ---- 3. Fr FFT at 2^20 ----
     fs20 = FFTSettings(20, dev)
     vals = random_fr_ints(rng, 1 << 20, r)
     x20 = fr.from_int(vals, dev)
+    before = fk.LAUNCHES["fr_fft_block"]
     y20 = fft(fs20, x20)
+    fft20_launches = fk.LAUNCHES["fr_fft_block"] - before
+    check(fft20_launches <= 3, f"FFT 2^20 took {fft20_launches} launches")
     back = fft(fs20, y20, inverse=True)
     check(same(back, x20), "FFT 2^20 roundtrip failed")
     w20 = fs20.root_of_unity_int
@@ -680,7 +867,12 @@ def main() -> int:
     ys = fr.to_int(y20[idx])
     for i, y in zip(idx, ys):
         check(int(y) == eval_poly(vals, pow(w20, i, r), r), f"FFT out {i}")
-    log(f"Fr FFT 2^20: roundtrip exact; outputs {idx} match direct evaluation")
+    check(same(y20, stage_fft(x20, fs20.expanded_roots_of_unity,
+                              1 << 20)[0]),
+          "FFT 2^20 differs from K2's per-stage route")
+    log(f"Fr FFT 2^20: {fft20_launches} fr_fft_block launches; roundtrip "
+        f"exact; outputs {idx} match direct evaluation; equal to K2's "
+        f"per-stage route")
 
     # ---- 4. main path at the PeerDAS shape ----
     n, n2, l = 4096, 8192, 64
@@ -811,7 +1003,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"producer path launches: {json.dumps(launches)}")
-    for name in PATH_KERNELS + ("fr_dif_stage",):
+    for name in PATH_KERNELS + EXTENSION_KERNELS:
         check(launches[name] > 0,
               f"{name} was not launched on the producer path")
     check(launches["g1_double"] == 0, "the producer path launched g1_double")
@@ -883,11 +1075,13 @@ def main() -> int:
     torch.cuda.synchronize()
     rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
     log(f"reconstruction path launches: {json.dumps(rec_launches)}")
-    for name in PATH_KERNELS:
+    for name in PATH_KERNELS + RECOVERY_KERNELS:
         check(rec_launches[name] > 0,
               f"{name} was not launched on the reconstruction path")
     check(rec_launches["g1_double"] == 0,
           "the reconstruction path launched g1_double")
+    check(rec_launches["fr_butterfly_stage"] == 0,
+          "the reconstruction path launched K2 (fr_butterfly_stage)")
     check(len(missing) == n2 // 2 and not same(samples, ext),
           "the samples do not miss half the extension")
     check(same(rec, ext), "recovery differs from the extension")
@@ -901,6 +1095,42 @@ def main() -> int:
     log(f"reconstruction path: {len(held)} of {n_cells} cells held, "
         f"{len(missing)} values recovered exactly; commitment and "
         f"{n_cells} proofs equal the producer's")
+    # the recovery alone, with every K1 launch's lane count: no Fermat
+    # ladder of one-lane launches (only powers_of's doublings are one lane)
+    k1_lanes = []
+    launch_k1 = fk._launch_mont_mul
+
+    def counted_k1(spec, a_, b_, what):
+        k1_lanes.append(a_.numel() // spec.n_words)
+        return launch_k1(spec, a_, b_, what)
+
+    fk.reset_launches()
+    gk.reset_launches()
+    fk._launch_mont_mul = counted_k1
+    try:
+        rec1 = recover_poly_from_samples(fs13, samples, missing)
+        torch.cuda.synchronize()
+    finally:
+        fk._launch_mont_mul = launch_k1
+    recovery_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    one_lane_k1 = sum(1 for k in k1_lanes if k == 1)
+    log(f"recovery launches: {json.dumps(recovery_launches)}; K1 launches "
+        f"of one lane: {one_lane_k1}")
+    check(same(rec1, ext), "the recovery alone differs from the extension")
+    for name in RECOVERY_KERNELS + ("fr_fft_block", "mont_mul"):
+        check(recovery_launches[name] > 0,
+              f"{name} was not launched in the recovery")
+    check(recovery_launches["fr_butterfly_stage"] == 0,
+          "the recovery launched K2 (fr_butterfly_stage)")
+    check(recovery_launches["mont_mul"] < 150,
+          f"the recovery launched K1 {recovery_launches['mont_mul']} times")
+    check(one_lane_k1 <= 2 * bits + 2,
+          f"the recovery made {one_lane_k1} one-lane K1 launches: a ladder")
+    before = fk.LAUNCHES["fr_fft_block"]
+    fft(fs13, rec1)
+    fft8192_launches = fk.LAUNCHES["fr_fft_block"] - before
+    check(fft8192_launches <= 2,
+          f"an 8192-point FFT took {fft8192_launches} launches")
 
     # the legacy pipeline against the modern one at n = 1024, half missing
     n_leg = 1024
@@ -934,6 +1164,8 @@ def main() -> int:
         return host_ec.g1_mul(gen, eval_poly(q, s_r, r))
 
     zpt = random_fr_ints(rng, 1, r)[0]
+    fk.reset_launches()
+    gk.reset_launches()
     for method in ("auto", "serial"):
         pf = ks.compute_proof_single(cf[:n], zpt, method=method)
         check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in pf)))
@@ -948,6 +1180,11 @@ def main() -> int:
     pm = ks.compute_proof_multi(cf[:n], pow(w2, ci, r), l)
     torch.cuda.synchronize()
     proof_multi_s = time.time() - t
+    api_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    log(f"proof API launches: {json.dumps(api_launches)}")
+    for name in ("fr_add_sub", "fr_pow"):
+        check(api_launches[name] > 0,
+              f"{name} was not launched by the proof API")
     check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in pm)))
           == g1.to_affine_ints(JacobianPoint(*(c[ci:ci + 1]
                                                for c in proofs2))),
@@ -1053,14 +1290,19 @@ def main() -> int:
     recover_profile = trace(
         "recovery", lambda: recover_poly_from_samples(fs13, samples, missing),
         recover_ms)
+    check(recover_profile["device_ops"] <= 400,
+          f"the recovery trace holds {recover_profile['device_ops']} device "
+          "operations")
 
     path_launches = {"setup": setup_launches, "proof": fk20_launches,
                      "producer": launches, "reconstruction": rec_launches,
+                     "proof_api": api_launches,
                      "fk20_single": single_launches}
     kernels = []
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
-               products, err, reps=5, plain_reps=1, chain=None):
+               products, err, reps=5, plain_reps=1, chain=None, lat=None,
+               per_call=1):
         # the kernel against its plain version at the timed shape, the
         # plain version first: the Fr stages work in place
         ref = plain_fn()
@@ -1073,7 +1315,8 @@ def main() -> int:
         call_ms = timed(fn, reps)
         dev_ms, caught = kernel_ms(fn, match, reps)
         call2_ms = timed(fn, reps)
-        ms = call2_ms if dev_ms is None else dev_ms
+        # a call of `per_call` launches: its device time is theirs
+        ms = call2_ms if dev_ms is None else dev_ms * per_call
         pms = timed(plain_fn, plain_reps)
         b, by = bound_ms(nbytes, products)
         by_path = {p: c[name] for p, c in path_launches.items()}
@@ -1083,12 +1326,14 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
             "bound_by": by, "library_ms": None,
-            "latency_ms": None if chain is None else chain * lat_ms})
+            "latency_ms": None if chain is None else chain * (lat or lat_ms)})
         timing[name] = {"device_ms": dev_ms, "traced_launches": caught,
-                        "reps": reps, "call_ms": [call_ms, call2_ms],
+                        "reps": reps, "launches_a_call": per_call,
+                        "call_ms": [call_ms, call2_ms],
                         "chain_products": chain}
         log(f"[{card}] {name}: {ms:.4f} ms on the device ({caught} of "
-            f"{reps} launches traced), {call_ms:.4f} then {call2_ms:.4f} ms "
+            f"{reps * per_call} launches traced), {call_ms:.4f} then "
+            f"{call2_ms:.4f} ms "
             f"a call (plain {pms:.3f} ms, bound {b:.3g} ms by {by})")
 
     timing = {}
@@ -1105,7 +1350,7 @@ def main() -> int:
            lambda: fk.mont_mul_plain(FR, a, one),
            2 * 32 * nl + 32, nl * (2 * 8 * 8 + 8),
            max(checks["mont_mul_Fr"], checks["mont_mul_Fp"]))
-    # fr_scale at the blob's inverse FFT exit: 4096 lanes
+    # fr_scale at the DAS extension's exit: 4096 lanes
     c13 = fr.from_int(pow(n, -1, r), dev)
     x13 = blob
     record("fr_scale", "mont_mul_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
@@ -1420,6 +1665,141 @@ def main() -> int:
            5 * 32 * nbl, nbl * (2 * 8 * 8 + 8),
            max(checks["butterfly_Fr"], checks["butterfly_Fp"]))
 
+
+    # ---- the routes of K1 and K2: old and new in turns, then each kernel
+    # The Fr product's dependent latency: one lane's Fermat ladder is one
+    # thread's chain of (bits - 1) squarings and (ones - 1) multiplies
+    e_inv = r - 2
+    ladder = (e_inv.bit_length() - 1) + (bin(e_inv).count("1") - 1)
+    a1 = inv_in[5:6].clone()
+    pow1_fn = (lambda: fk.fr_pow(FR, a1, e_inv))
+    pow1_ms, _ = kernel_ms(pow1_fn, "pow_kernel", 5)
+    if pow1_ms is None:     # the trace caught no launch: events instead
+        pow1_ms = timed(pow1_fn, 5)
+    fr_lat_ms = pow1_ms / ladder
+    log(f"[{card}] Fr product dependent latency: a one-lane ladder "
+        f"{pow1_ms:.4f} ms / {ladder} products = {fr_lat_ms * 1e6:.1f} ns")
+    k1 = functools.partial(fk.mont_mul, FR)
+
+    def scan_batch_inv(a_):
+        """The earlier fr.batch_inv, kept here only to time it beside the
+        kernel: prefix and suffix scans of K1 launches, the total's Fermat
+        ladder as one-lane K1 launches."""
+        one_ = FR.words([FR.one_mont], dev)
+        zero_ = limbs.is_zero(a_)
+        safe = limbs.select(zero_, one_, a_)
+        pre = limbs.prefix_products(k1, safe)
+        suf = limbs.prefix_products(k1, safe, reverse=True)
+        tinv = limbs.pow_static(FR, k1, pre[-1], e_inv)
+        out = k1(k1(torch.cat((one_, pre[:-1])), torch.cat((suf[1:], one_))),
+                 tinv)
+        return limbs.select(zero_, torch.zeros_like(out), out)
+
+    def loop_leaves(idx_, valid_):
+        """The earlier leaf build, kept here only to time it: 64 steps of a
+        plain-engine add, a K1 product, a concatenation and a select."""
+        roots_ = fs13.expanded_roots_of_unity
+        ii = torch.as_tensor(idx_.reshape(-1), dtype=torch.long, device=dev)
+        negr = limbs.neg(FR, roots_[ii]).reshape(idx_.shape + (8,))
+        poly = fr.zeros((idx_.shape[0], fk.LEAF_WIDTH), dev)
+        poly[:, 0] = fr.from_int(1, dev)
+        for s_ in range(int(valid_.sum(1).max())):
+            shifted = torch.cat((torch.zeros_like(poly[:, :1]),
+                                 poly[:, :-1]), dim=1)
+            cand = limbs.add(FR, shifted, k1(poly, negr[:, s_, None, :]))
+            poly = cand if valid_[:, s_].all() else limbs.select(
+                torch.as_tensor(valid_[:, s_, None], device=dev), cand, poly)
+        return poly
+
+    roots13 = fs13.expanded_roots_of_unity
+    lidx, lvalid = leaves_in
+    for key, old_fn, new_fn, reps in (
+            ("Fr FFT 1 x 8192: K2 one launch a stage vs fr_fft_block",
+             lambda: stage_fft(fft_in, roots13, 8192),
+             lambda: fk.fr_fft_block(FR, fft_in, roots13, 8192), 10),
+            ("Fr FFT 2^20: K2 one launch a stage vs fr_fft_block",
+             lambda: stage_fft(x20, fs20.expanded_roots_of_unity, 1 << 20),
+             lambda: fft(fs20, x20), 3),
+            ("Fermat ladder, one lane: K1 a product vs fr_pow",
+             lambda: limbs.pow_static(FR, k1, a1, e_inv), pow1_fn, 2),
+            ("batch inversion, 8192 lanes: K1 scans and ladder vs "
+             "fr_batch_inv", lambda: scan_batch_inv(inv_in),
+             lambda: fk.fr_batch_inv(FR, inv_in), 2),
+            ("zero-polynomial leaves, 64 x 64 factors: 64-step loop vs "
+             "fr_zero_poly_leaves", lambda: loop_leaves(lidx, lvalid),
+             lambda: fk.fr_zero_poly_leaves(FR, roots13, lidx, lvalid), 2)):
+        old_out, new_out = old_fn(), new_fn()
+        check(same(old_out.reshape(new_out.shape), new_out),
+              f"{key}: the old route differs from the new")
+        in_turns(key, old_fn, new_fn, reps)
+
+    # fr_add_sub at the proof API's quotient numerator: 4096 Fr lanes
+    # less one broadcast element; bytes only
+    ev4 = cf[:n]
+    y1 = inv_in[7]
+    record("fr_add_sub", "add_sub_kernel",
+           "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/field/fr.py:34-44",
+           lambda: fk.fr_add_sub(FR, "sub", ev4, y1),
+           lambda: fk.fr_add_sub_plain(FR, "sub", ev4, y1),
+           2 * 32 * n + 32, 0, checks["fr_add_sub"], reps=20)
+    # fr_pow at the quotient's denominators: 4096 lanes of r - 2
+    record("fr_pow", "pow_kernel", "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:324",
+           lambda: fk.fr_pow(FR, ev4, e_inv),
+           lambda: fk.fr_pow_plain(FR, ev4, e_inv),
+           2 * 32 * n, n * ladder * (2 * 8 * 8 + 8), checks["fr_pow"],
+           reps=3, chain=ladder, lat=fr_lat_ms)
+    kernels[-1]["lane_ms"] = pow1_ms
+    # fr_batch_inv at the recovery's 8192 lanes: the trick's 3 (n - 1)
+    # products and one ladder; its chain is thread 0's: a chunk, the
+    # scan's 8 levels, the ladder, 2 products, the back pass's chunk
+    ch, _ = fk.inv_chunking(n2)
+    record("fr_batch_inv", "batch_inv_kernel",
+           "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:324",
+           lambda: fk.fr_batch_inv(FR, inv_in),
+           lambda: fk.fr_batch_inv_plain(FR, inv_in),
+           2 * 32 * n2, (3 * (n2 - 1) + ladder) * (2 * 8 * 8 + 8),
+           checks["fr_batch_inv"], chain=ch + 8 + ladder + 2 + ch,
+           lat=fr_lat_ms)
+    # fr_fft_block at the recovery's 1 x 8192 forward transform: values
+    # read and written once, the 4096 twiddles of the last stage (the
+    # earlier stages' are among them) read once, (n/2)(log2 n - 1)
+    # products; a thread's chain is one butterfly a stage
+    plan13 = fk.fft_plan(13)
+    record("fr_fft_block", "fft_block_kernel",
+           "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:514",
+           lambda: fk.fr_fft_block(FR, fft_in, roots13, 8192),
+           lambda: fk.fr_fft_block_plain(FR, fft_in, roots13, 8192),
+           2 * 32 * n2 + 32 * n2 // 2, n2 // 2 * 12 * (2 * 8 * 8 + 8),
+           checks["fr_fft_block"], reps=10, chain=13 - 1, lat=fr_lat_ms,
+           per_call=len(plan13))
+    # and at 2^20 (2 passes): events around the whole call
+    fft20_bytes = 2 * 32 * (1 << 20) + 32 * (1 << 19)
+    fft20_products = (1 << 19) * 19
+    fft20_bound = bound_ms(fft20_bytes, fft20_products * (2 * 8 * 8 + 8))
+    fft(fs20, x20)
+    fft20_passes = [(e - s_) / 1e3 for nm, s_, e in device_events(
+        lambda: fft(fs20, x20)) if "fft_block_kernel" in nm]
+    kernels[-1]["at_2_20"] = {"pass_ms": fft20_passes,
+                              "launches": fft20_launches,
+                              "call_ms": timed(lambda: fft(fs20, x20), 5),
+                              "bound_ms": fft20_bound[0],
+                              "bound_by": fft20_bound[1]}
+    # fr_zero_poly_leaves at the recovery's 64 full leaves: the factor
+    # indices, 4096 roots and 64 x 128 coefficients moved once; step s of
+    # a leaf needs s + 1 products
+    record("fr_zero_poly_leaves", "zero_poly_leaves_kernel",
+           "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/das/zero_poly.py:34-51",
+           lambda: fk.fr_zero_poly_leaves(FR, roots13, lidx, lvalid),
+           lambda: fk.fr_zero_poly_leaves_plain(FR, roots13, lidx, lvalid),
+           64 * 64 * 4 + 4096 * 32 + 64 * 128 * 32,
+           64 * (64 * 65 // 2) * (2 * 8 * 8 + 8),
+           checks["fr_zero_poly_leaves"], chain=64, lat=fr_lat_ms)
+
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
               "proofs_per_s": n2 // l / fk20_ms * 1e3,
@@ -1441,6 +1821,11 @@ def main() -> int:
               "fp_product_latency_ms": lat_ms, "in_turns": turns,
               "g1_fft_8192_plans": plans,
               "proof_multi_s": proof_multi_s, "legacy_1024_s": legacy_s,
+              "fft_2_20_launches": fft20_launches,
+              "fft_8192_launches": fft8192_launches,
+              "fr_product_latency_ms": fr_lat_ms,
+              "recovery_launches": recovery_launches,
+              "recovery_one_lane_k1": one_lane_k1,
               "launches": path_launches, "kernels": kernels,
               "kernel_timing": timing, "fk20_profile": profile,
               "commit_profile": commit_profile,

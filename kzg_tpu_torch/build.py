@@ -21,8 +21,8 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
-SOURCES = ("fr_kernels", "g1_kernels", "g1_fft_kernels", "g1_table_kernels",
-           "g1_point_kernels", "g1_sum_kernels")
+SOURCES = ("fr_kernels", "fr_route_kernels", "g1_kernels", "g1_fft_kernels",
+           "g1_table_kernels", "g1_point_kernels", "g1_sum_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,13 @@ SIGNATURES = {
         "kzg_fr_butterfly_stage": (_P, _P, _I, _I, _I, _I, _I, _P),
         "kzg_fr_dif_stage": (_P, _P, _I, _I, _I, _I, _P),
         "kzg_fr_signed_windows": (_P, _P, _I, _P),
+    },
+    "fr_route_kernels": {
+        "kzg_fr_add_sub": (_I, _I, _P, _P, _P, _I, _I, _P),
+        "kzg_fr_pow": (_I, _P, _P, _I, _P, _I, _P),
+        "kzg_fr_batch_inv": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P),
+        "kzg_fr_fft_block": (_P, _P, _P) + (_I,) * 6 + (_P, _P),
+        "kzg_fr_zero_poly_leaves": (_P, _P, _P, _I, _P),
     },
     "g1_kernels": {
         "kzg_g1_scalar_mul": (_P,) * 7 + (_I, _I, _P),

@@ -26,8 +26,8 @@ namespace kzg {
 template <int N>
 struct Field;
 
-// Moduli and n0 = -m^-1 mod 2^32 (the CIOS digit constant; not the
-// full-width n' of the 16-bit engine).
+// Moduli, n0 = -m^-1 mod 2^32 (the CIOS digit constant; not the
+// full-width n' of the 16-bit engine) and one = R mod m.
 template <>
 struct Field<8> {
   static constexpr uint32_t n0 = 0xffffffffu;
@@ -36,6 +36,13 @@ struct Field<8> {
                                0x53bda402u, 0x09a1d805u, 0x3339d808u,
                                0x299d7d48u, 0x73eda753u};
     return M[i];
+  }
+  // R mod m: one in Montgomery form
+  __device__ __forceinline__ static uint32_t one(int i) {
+    constexpr uint32_t O[8] = {0xfffffffeu, 0x00000001u, 0x00034802u,
+                               0x5884b7fau, 0xecbc4ff5u, 0x998c4fefu,
+                               0xacc5056fu, 0x1824b159u};
+    return O[i];
   }
 };
 
@@ -48,6 +55,13 @@ struct Field<12> {
                                 0xf38512bfu, 0x64774b84u, 0x434bacd7u,
                                 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
     return M[i];
+  }
+  __device__ __forceinline__ static uint32_t one(int i) {
+    constexpr uint32_t O[12] = {0x0002fffdu, 0x76090000u, 0xc40c0002u,
+                                0xebf4000bu, 0x53c758bau, 0x5f489857u,
+                                0x70525745u, 0x77ce5853u, 0xa256ec6du,
+                                0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+    return O[i];
   }
 };
 

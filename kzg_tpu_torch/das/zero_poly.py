@@ -2,9 +2,8 @@
 (kzg_tpu/das/zero_poly.py; reference: ZeroPolyViaMultiplication,
 zero_poly.go:116-217).
 
-  1. leaves of up to 64 linear factors, built by a loop of up to 64 steps
-     batched over all leaves at once (each step one shift-multiply-add
-     over every leaf);
+  1. leaves of up to 64 linear factors, all built in one launch of
+     `fr_zero_poly_leaves` (one block a leaf, one step a factor);
   2. a binary product tree whose every level is one batched FFT
      convolution over all remaining pairs.
 The missing-index set is host data; the leaf count is padded to a power
@@ -18,32 +17,9 @@ import numpy as np
 import torch
 
 from ..field import fr
+from ..field.kernels import LEAF_FACTORS, fr_zero_poly_leaves
 from ..ntt.domain import FFTSettings
 from ..ntt.fft_fr import _fft_core, fft
-
-LEAF_FACTORS = 64  # factors per leaf (reference uses <=63, zero_poly.go:17)
-LEAF_WIDTH = 128   # storage width: degree <= 64 fits, power of two
-
-
-def _build_leaves(neg_roots, valid: np.ndarray):
-    """(G, S, 8) negated roots + host (G, S) validity -> (G, LEAF_WIDTH, 8)
-    monic products prod(x - r) over the valid factors of each leaf. The
-    valid factors fill each leaf from position 0, so the loop stops after
-    the fullest leaf's count, and selects only where some leaf is done."""
-    G = neg_roots.shape[0]
-    dev = neg_roots.device
-    poly = fr.zeros((G, LEAF_WIDTH), dev)
-    poly[:, 0] = fr.from_int(1, dev)
-    for s in range(int(valid.sum(1).max())):
-        shifted = torch.cat((torch.zeros_like(poly[:, :1]), poly[:, :-1]),
-                            dim=1)
-        cand = fr.add(shifted, fr.mul(poly, neg_roots[:, s, None, :]))
-        if valid[:, s].all():
-            poly = cand
-        else:
-            poly = fr.select(torch.as_tensor(valid[:, s, None], device=dev),
-                             cand, poly)
-    return poly
 
 
 def _reduce_level(polys, roots, rev_roots, max_width: int, target: int):
@@ -63,10 +39,7 @@ def zero_poly_graph(root_idx, valid, roots, rev_roots, length: int,
     """Leaf build, product tree and the final forward FFT. root_idx and
     valid are host (G, S) arrays from `leaf_layout`. -> (evals, coeffs),
     each (length, 8)."""
-    dev = roots.device
-    idx = torch.as_tensor(root_idx.reshape(-1), dtype=torch.long, device=dev)
-    neg_roots = fr.neg(roots[idx]).reshape(root_idx.shape + (fr.N_WORDS,))
-    polys = _build_leaves(neg_roots, valid)
+    polys = fr_zero_poly_leaves(fr.SPEC, roots, root_idx, valid)
     while polys.shape[0] > 1:
         target = min(2 * polys.shape[1], length)
         polys = _reduce_level(polys, roots, rev_roots, max_width, target)

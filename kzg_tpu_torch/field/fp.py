@@ -1,7 +1,8 @@
 """The BLS12-381 base field Fp (381-bit) as batched 32-bit words.
 
 An Fp batch is a torch.int32 tensor (..., 12) in Montgomery form
-(R = 2^384), always fully reduced. `mul`/`sqr` run on kernel K1.
+(R = 2^384), always fully reduced. `mul`/`sqr` run on kernel K1, add,
+sub and neg on `fr_add_sub`, `inv` on `fr_pow`.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from . import limbs
 from .constants import FP_MODULUS
-from .kernels import mont_mul
+from .kernels import fr_add_sub, fr_pow, mont_mul
 from .limbs import FieldSpec
 
 SPEC = FieldSpec(name="Fp", modulus=FP_MODULUS, n_words=12)
@@ -19,15 +20,15 @@ N_WORDS = SPEC.n_words
 
 
 def add(a, b):
-    return limbs.add(SPEC, a, b)
+    return fr_add_sub(SPEC, "add", a, b)
 
 
 def sub(a, b):
-    return limbs.sub(SPEC, a, b)
+    return fr_add_sub(SPEC, "sub", a, b)
 
 
 def neg(a):
-    return limbs.neg(SPEC, a)
+    return fr_add_sub(SPEC, "neg", a)
 
 
 def mul(a, b):
@@ -41,7 +42,7 @@ def sqr(a):
 def inv(a):
     """Fermat inverse a^(p-2), lane-parallel (square-and-multiply over
     the static exponent, MSB first); 0 -> 0."""
-    return limbs.pow_static(SPEC, mul, a, SPEC.modulus - 2)
+    return fr_pow(SPEC, a, SPEC.modulus - 2)
 
 
 eq = limbs.eq

@@ -1,9 +1,9 @@
 """The BLS12-381 scalar field Fr as batched 32-bit words.
 
 An Fr batch is a torch.int32 tensor (..., 8) in Montgomery form
-(R = 2^256), always fully reduced. `mul` runs on kernel K1, and so do
-the Fermat ladder of `inv` and the scans of `batch_inv`; add, sub and neg
-are plain tensor code.
+(R = 2^256), always fully reduced. `mul` runs on kernel K1; add, sub and
+neg on `fr_add_sub`, `pow_static` and `inv` on `fr_pow` (the whole ladder
+in one launch), `batch_inv` on `fr_batch_inv`.
 """
 
 from __future__ import annotations
@@ -13,7 +13,13 @@ import torch
 
 from . import limbs
 from .constants import FR_MODULUS
-from .kernels import fr_signed_windows, mont_mul
+from .kernels import (
+    fr_add_sub,
+    fr_batch_inv,
+    fr_pow,
+    fr_signed_windows,
+    mont_mul,
+)
 from .limbs import FieldSpec
 
 SPEC = FieldSpec(name="Fr", modulus=FR_MODULUS, n_words=8)
@@ -21,15 +27,15 @@ N_WORDS = SPEC.n_words
 
 
 def add(a, b):
-    return limbs.add(SPEC, a, b)
+    return fr_add_sub(SPEC, "add", a, b)
 
 
 def sub(a, b):
-    return limbs.sub(SPEC, a, b)
+    return fr_add_sub(SPEC, "sub", a, b)
 
 
 def neg(a):
-    return limbs.neg(SPEC, a)
+    return fr_add_sub(SPEC, "neg", a)
 
 
 def mul(a, b):
@@ -37,7 +43,7 @@ def mul(a, b):
 
 
 def pow_static(a, e: int):
-    return limbs.pow_static(SPEC, mul, a, e)
+    return fr_pow(SPEC, a, e)
 
 
 def inv(a):
@@ -46,8 +52,8 @@ def inv(a):
 
 
 def batch_inv(a):
-    """Montgomery-trick batch inversion (limbs.batch_inv); 0 -> 0."""
-    return limbs.batch_inv(SPEC, mul, a)
+    """Montgomery-trick batch inversion over all leading axes; 0 -> 0."""
+    return fr_batch_inv(SPEC, a)
 
 
 def div(a, b):

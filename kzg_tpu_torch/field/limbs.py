@@ -260,8 +260,9 @@ def select(mask, a, b):
     return torch.where(mask.unsqueeze(-1), a, b)
 
 
-# ---- exponentiation and inversion over a field product `mul` (K1 in
-# fr/fp), kzg_tpu/field/limbs.py:353-422 ----
+# ---- exponentiation and scans over a field product `mul` (the plain
+# versions of fr_pow and fr_batch_inv, field/kernels.py;
+# kzg_tpu/field/limbs.py:353-422) ----
 def pow_static(spec: FieldSpec, mul, a, exponent: int):
     """a^exponent for a static exponent: square-and-multiply MSB first,
     branching in Python on each bit (square always, multiply on a 1 bit).
@@ -292,25 +293,3 @@ def prefix_products(mul, x, reverse: bool = False):
             x = torch.cat((x[:d], mul(x[d:], x[:-d])))
         d *= 2
     return x
-
-
-def batch_inv(spec: FieldSpec, mul, a):
-    """Montgomery-trick inversion over all leading axes: prefix and suffix
-    products, ONE Fermat inverse of the total, then
-    inv_i = prefix_{i-1} * suffix_{i+1} * total^-1. Zero lanes are taken
-    out of the products (as 1) and map to 0, as Fermat's 0^(m-2) does."""
-    lead = a.shape[:-1]
-    n = int(np.prod(lead)) if lead else 1
-    if n <= 1:
-        return pow_static(spec, mul, a, spec.modulus - 2)
-    flat = a.reshape(n, spec.n_words)
-    one = spec.words([spec.one_mont], a.device)
-    zero_mask = is_zero(flat)
-    safe = select(zero_mask, one, flat)
-    prefix = prefix_products(mul, safe)
-    suffix = prefix_products(mul, safe, reverse=True)
-    total_inv = pow_static(spec, mul, prefix[-1], spec.modulus - 2)
-    ex_prefix = torch.cat((one, prefix[:-1]))
-    ex_suffix = torch.cat((suffix[1:], one))
-    out = mul(mul(ex_prefix, ex_suffix), total_inv)
-    return select(zero_mask, torch.zeros_like(out), out).reshape(a.shape)

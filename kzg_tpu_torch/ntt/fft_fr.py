@@ -1,5 +1,7 @@
-"""Radix-2 (I)FFT over Fr: bit-reversal, then log2(n) DIT stages on
-kernel K2, and for the inverse one scale by 2^-k on `fr_scale` (K1).
+"""Radix-2 (I)FFT over Fr on `fr_fft_block`: the log2(n) DIT stages in
+passes of up to 11 stages each in shared memory, the first pass reading
+the input in bit-reversed order, the last scaling an inverse by 2^-k in
+its store (K2's route).
 
 Forward computes out[i] = sum_j vals[j] w^(i j) with the expanded roots;
 the inverse uses the reverse roots and scales by 1/n
@@ -11,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..field import fr
-from ..field.kernels import fr_butterfly_stage, fr_scale
-from .bitrev import brp_permute
+from ..field.kernels import fr_fft_block
 from .domain import FFTSettings, next_pow_of_2
 
 
@@ -23,17 +24,11 @@ def _fft_core(vals: torch.Tensor, roots: torch.Tensor, inv_log2,
     derived from the shape (a sharded local IFFT scales by the global n).
     0 is an inverse transform scaled by 2^0 = 1, distinct from None."""
     n = vals.shape[-2]
-    batch_shape = vals.shape[:-2]
-    # a fresh contiguous copy: the stages run in place
-    x = brp_permute(vals, axis=-2).reshape(-1, n, fr.N_WORDS).clone(
-        memory_format=torch.contiguous_format)
-    logn = n.bit_length() - 1
-    for s in range(1, logn + 1):
-        fr_butterfly_stage(fr.SPEC, x, roots, s - 1, max_width >> s)
-    if inv_log2 is not None:
-        c = fr.from_int(pow(1 << inv_log2, -1, fr.SPEC.modulus), x.device)
-        x = fr_scale(fr.SPEC, x, c)
-    return x.reshape(batch_shape + (n, fr.N_WORDS))
+    scale = None if inv_log2 is None else pow(1 << inv_log2, -1,
+                                              fr.SPEC.modulus)
+    x = fr_fft_block(fr.SPEC, vals.reshape(-1, n, fr.N_WORDS), roots,
+                     max_width, scale)
+    return x.reshape(vals.shape)
 
 
 def fft(fs: FFTSettings, vals: torch.Tensor, inverse: bool = False):

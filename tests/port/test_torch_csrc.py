@@ -127,3 +127,51 @@ def test_sum_layout_constants():
     assert f"constexpr int kThreads = {gk.SUM_THREADS};" in text
     assert f"constexpr int kRun = {gk.SUM_RUN};" in text
     assert f"constexpr int kWindows = {gk.FIXED_WINDOWS};" in text
+
+
+@pytest.mark.parametrize("spec", [fr.SPEC, fp.SPEC], ids=["Fr", "Fp"])
+def test_field_header_one(spec):
+    """Field<N>::one, which the route kernels start their products from,
+    is R mod m."""
+    text = source("field.cuh")
+    block = text[text.index(f"struct Field<{spec.n_words}>"):]
+    assert words_after(block, "one(int i)", spec.n_words) == spec.one_mont
+
+
+def test_route_layout_constants():
+    """The route kernels' op codes, block sizes, tile limit and leaf shape
+    equal the wrappers' (field/kernels.py), which plan the launches and
+    whose plain versions follow the same layout."""
+    from kzg_tpu_torch.field import kernels as fk
+
+    text = source("fr_route_kernels.cu")
+    assert "enum { kAdd = 0, kSub = 1, kNeg = 2 };" in text
+    assert fk.ADD_SUB_OPS == {"add": 0, "sub": 1, "neg": 2}
+    assert "enum { kInvFull = 0, kInvUp = 1, kInvDown = 2 };" in text
+    assert (fk._INV_FULL, fk._INV_UP, fk._INV_DOWN) == (0, 1, 2)
+    for name, value in (("kInvThreads", fk.INV_THREADS),
+                        ("kInvBlockLanes", fk.INV_BLOCK_LANES),
+                        ("kFftTileLog", fk.FFT_TILE_LOG),
+                        ("kLeafWidth", fk.LEAF_WIDTH),
+                        ("kLeafFactors", fk.LEAF_FACTORS)):
+        assert f"constexpr int {name} = {value};" in text
+    assert fk.INV_BLOCK_LANES % fk.INV_THREADS == 0
+    # the widest tile and its padding fit a block's 227 KB
+    assert 8 * ((1 << fk.FFT_TILE_LOG) + 4) * 4 <= 232448
+
+
+@pytest.mark.parametrize("fn,kernel,argc", [
+    ("kzg_fr_add_sub", "add_sub_kernel", 8),
+    ("kzg_fr_pow", "pow_kernel", 7)])
+def test_route_generic_entry_points(fn, kernel, argc):
+    """add/sub/neg and the ladder launch their template for N = 8 (Fr)
+    and N = 12 (Fp) and refuse other widths."""
+    assert "fr_route_kernels" in build.SOURCES
+    assert len(build.SIGNATURES["fr_route_kernels"][fn]) == argc
+    text = source("fr_route_kernels.cu")
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    for n in (fp.SPEC.n_words, fr.SPEC.n_words):
+        assert f"n_words == {n}" in body
+        assert f"{kernel}<{n}><<<" in body
+    assert "cudaErrorInvalidValue" in body

@@ -168,9 +168,25 @@ def test_wrappers_refuse_non_cpu_tensors():
         kernels.butterfly(fr.SPEC, meta, meta, meta[0])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_signed_windows(meta)
-    assert kernels.LAUNCHES == {"mont_mul": 0, "fr_scale": 0,
-                                "fr_butterfly_stage": 0, "fr_dif_stage": 0,
-                                "butterfly": 0, "fr_signed_windows": 0}
+    for op in ("add", "sub"):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.fr_add_sub(fr.SPEC, op, meta, meta[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_add_sub(fr.SPEC, "neg", meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_pow(fr.SPEC, meta, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_batch_inv(fr.SPEC, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_fft_block(fr.SPEC, meta.reshape(1, 4, 8), meta, 4)
+    idx = np.zeros((1, kernels.LEAF_FACTORS), dtype=np.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_zero_poly_leaves(fr.SPEC, meta, idx, idx == 0)
+    assert set(kernels.LAUNCHES.values()) == {0}
+    assert set(kernels.LAUNCHES) == {
+        "mont_mul", "fr_scale", "fr_butterfly_stage", "fr_dif_stage",
+        "butterfly", "fr_signed_windows", "fr_add_sub", "fr_pow",
+        "fr_batch_inv", "fr_fft_block", "fr_zero_poly_leaves"}
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
