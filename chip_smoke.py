@@ -26,8 +26,11 @@ Phases; any failure raises and the script exits non-zero with no result:
      lanes in one launch, 2^16 in three, zero lanes mixed in),
      fr_fft_block (the product tree's batches 32 x 256 ... 1 x 8192 and
      FK20's 64 x 128, forward and inverse, also against K2's route, in
-     at most 2 launches; 8192 in 4-stage tiles) and fr_zero_poly_leaves
-     (64 full leaves; full, partial and padding leaves));
+     at most 2 launches; 8192 in 4-stage tiles), fr_zero_poly_leaves
+     (64 full leaves; full, partial and padding leaves) and fr_das_block
+     (the DAS extension of 1 x 4096 and of a block's 9 blobs, odds and
+     interleaved, in 3 launches, also against the per-level route on
+     fr_dif_stage, K2 and fr_scale));
   3. Fr FFT at 2^20 on fr_fft_block (at most 3 launches): forward then
      inverse, the roundtrip, a few outputs against direct evaluation
      with Python ints, and the forward against K2's per-stage route;
@@ -46,10 +49,11 @@ Phases; any failure raises and the script exits non-zero with no result:
      rebuild. The path must launch g1_sum once and g1_add never;
   5. the producer path at the same shape (a blob builder's flow,
      examples/full_das_pipeline.py:49-78): 4096 evaluations ->
-     das_extend_interleaved -> 8192 values -> inverse FFT (top half zero)
-     -> commit_to_poly (a 4096-point MSM: one fixed-base product on the
-     CRS tables and one g1_sum) -> fk20_multi_da_optimized. The launch
-     counters of its kernels must be > 0 and g1_double's 0; the extension
+     das_extend_interleaved (fr_das_block) -> 8192 values -> inverse FFT
+     (top half zero) -> commit_to_poly (a 4096-point MSM: one fixed-base
+     product on the CRS tables and one g1_sum) -> fk20_multi_da_optimized.
+     The launch counters of its kernels must be > 0, and g1_double's,
+     fr_dif_stage's, fr_butterfly_stage's and fr_scale's 0; the extension
      must equal the plain path's, the commitment the host oracle [p(s)]G,
      the variable-base lin_comb_g1 and the plain route on the plain CRS
      tables, the proofs the host oracle;
@@ -87,7 +91,11 @@ Phases; any failure raises and the script exits non-zero with no result:
      routes of K1 and K2 beside the new kernels in turns: K2's per-stage
      FFT against fr_fft_block at 1 x 8192 and 2^20, the one-lane ladder
      of K1 launches against fr_pow, the batch inversion on K1 scans
-     against fr_batch_inv, the 64-step leaf loop against fr_zero_poly_leaves.
+     against fr_batch_inv, the 64-step leaf loop against fr_zero_poly_leaves;
+     the DAS extension's trace (at most 3 device operations) and, in
+     turns at 1 and 9 blobs, the per-level route against fr_das_block,
+     and the producer path on the per-level extension route against it
+     on fr_das_block.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -97,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import functools
 import json
 import os
@@ -121,7 +130,10 @@ PATH_KERNELS = ("mont_mul", "fr_fft_block", "fr_signed_windows",
                 "g1_fixed_base_mul", "g1_window_table", "g1_fft_stage",
                 "g1_sum")
 # and the DAS extension's (the producer path)
-EXTENSION_KERNELS = ("fr_dif_stage", "fr_butterfly_stage", "fr_scale")
+EXTENSION_KERNELS = ("fr_das_block",)
+# and the per-level route that fr_das_block replaced, which the producer
+# path must launch no more
+STAGE_DAS_KERNELS = ("fr_dif_stage", "fr_butterfly_stage", "fr_scale")
 # and the recovery's (the reconstruction path)
 RECOVERY_KERNELS = ("fr_zero_poly_leaves", "fr_batch_inv")
 
@@ -240,14 +252,6 @@ def plain_path():
     from kzg_tpu_torch.fk20 import multi, toeplitz
     from kzg_tpu_torch.ntt import das, fft_fr
 
-    def stage(spec, x, roots, log_half, stride, offset=0):
-        return x.copy_(fk.fr_butterfly_stage_plain(spec, x, roots,
-                                                   log_half, stride, offset))
-
-    def dif(spec, x, roots, log_half, stride):
-        return x.copy_(fk.fr_dif_stage_plain(spec, x, roots, log_half,
-                                             stride))
-
     swaps = [(fr, "mont_mul", fk.mont_mul_plain),
              (fr, "fr_signed_windows", fk.fr_signed_windows_plain),
              (fr, "fr_add_sub", fk.fr_add_sub_plain),
@@ -259,9 +263,7 @@ def plain_path():
              (fft_fr, "fr_fft_block", fk.fr_fft_block_plain),
              (zero_poly, "fr_zero_poly_leaves",
               fk.fr_zero_poly_leaves_plain),
-             (das, "fr_dif_stage", dif),
-             (das, "fr_butterfly_stage", stage),
-             (das, "fr_scale", fk.fr_scale_plain),
+             (das, "fr_das_block", fk.fr_das_block_plain),
              (g1, "g1_scalar_mul", gk.g1_scalar_mul_plain),
              (g1, "g1_add", gk.g1_add_plain),
              (g1, "g1_double", gk.g1_double_plain),
@@ -420,6 +422,25 @@ def main() -> int:
             c_ = fr.from_int(inv_scale, x.device)
             y = (fk.fr_scale_plain if plain else fk.fr_scale)(fr.SPEC, y, c_)
         return y
+
+    def stage_das(fs_, x):
+        """The per-level route of the interleaved DAS extension, which
+        fr_das_block replaced (kept here to hold fr_das_block against it
+        and to time it beside it): a clone, one fr_dif_stage launch a
+        level down, one fr_butterfly_stage launch a level up, one
+        fr_scale by 1/n, and the interleave."""
+        rows_, n_ = x.shape[0], x.shape[1]
+        k_ = n_.bit_length() - 1
+        s0 = fs_.max_width // (2 * n_)
+        y = x.clone()
+        for k in range(k_):
+            fk.fr_dif_stage(fr.SPEC, y, fs_.reverse_roots_of_unity,
+                            k_ - 1 - k, 2 * (s0 << k))
+        for k in range(k_ - 1, -1, -1):
+            fk.fr_butterfly_stage(fr.SPEC, y, fs_.expanded_roots_of_unity,
+                                  k_ - 1 - k, 2 * (s0 << k), offset=s0 << k)
+        y = fk.fr_scale(fr.SPEC, y, fr.from_int(pow(n_, -1, r), x.device))
+        return torch.stack((x, y), dim=2).reshape(rows_, 2 * n_, fr.N_WORDS)
 
     checks = {}
     ab = {}
@@ -852,6 +873,39 @@ def main() -> int:
     log("fr_zero_poly_leaves: 64 full leaves, and 2 full + 1 partial + 1 "
         "padding leaf, bit-exact; the padding leaf is 1")
 
+    # fr_das_block: the DAS extension of one blob and of a block's 9
+    # (EIP-7691's most), values near r among them, odds and interleaved,
+    # in 3 launches, against the plain passes; the interleaved blobs also
+    # against the per-level route
+    checks["fr_das_block"] = 0
+    das_tables = (fs13.reverse_roots_of_unity, fs13.expanded_roots_of_unity)
+    das_in = {}
+    for rows_ in (1, 9):
+        xe = fr.from_int(random_fr_ints(rng, rows_ * 4096 - 4, r) + near,
+                         dev).reshape(rows_, 4096, 8)
+        das_in[rows_] = xe
+        for inter in (False, True):
+            before = fk.LAUNCHES["fr_das_block"]
+            got = fk.fr_das_block(fr.SPEC, xe, *das_tables, 8192, inter)
+            passes = fk.LAUNCHES["fr_das_block"] - before
+            check(passes == len(fk.das_plan(12)) == 3,
+                  f"fr_das_block {rows_} x 4096: {passes} launches")
+            want = fk.fr_das_block_plain(fr.SPEC, xe, *das_tables, 8192,
+                                         inter)
+            check(same(got, want), f"fr_das_block {rows_} x 4096 "
+                  f"interleave={inter} differs from its plain version")
+            checks["fr_das_block"] = max(checks["fr_das_block"],
+                                         max_abs_err(got, want))
+            if inter:
+                check(same(got[:, 0::2], xe),
+                      "fr_das_block does not keep the evens")
+        got = fk.fr_das_block(fr.SPEC, xe, *das_tables, 8192, True)
+        check(same(got, stage_das(fs13, xe)), f"fr_das_block {rows_} x 4096 "
+              "differs from the per-level route")
+    log("fr_das_block: 1 x 4096 and 9 x 4096, odds and interleaved, in 3 "
+        "passes, bit-exact against the plain passes and equal to the "
+        "per-level route")
+
     # ---- 3. Fr FFT at 2^20 ----
     fs20 = FFTSettings(20, dev)
     vals = random_fr_ints(rng, 1 << 20, r)
@@ -1006,7 +1060,8 @@ def main() -> int:
     for name in PATH_KERNELS + EXTENSION_KERNELS:
         check(launches[name] > 0,
               f"{name} was not launched on the producer path")
-    check(launches["g1_double"] == 0, "the producer path launched g1_double")
+    for name in ("g1_double",) + STAGE_DAS_KERNELS:
+        check(launches[name] == 0, f"the producer path launched {name}")
     check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
           "the extension does not keep the evens")
     with plain_path():
@@ -1238,6 +1293,17 @@ def main() -> int:
     log(f"[{card}] Fr FFT 2^20: {fft20_ms:.3f} ms")
 
     ext_ms = timed(lambda: das_extend_interleaved(fs13, evens), 5)
+
+    def producer_pr6(ev):
+        """The producer path with the per-level extension route."""
+        ext_ = stage_das(fs13, ev[None])[0]
+        cf_ = fft(fs13, ext_, inverse=True)
+        return (ext_, cf_, ks.commit_to_poly(cf_[:n]),
+                fkm.fk20_multi_da_optimized(cf_))
+
+    check(all(same(a_, b_) for a_, b_ in zip(producer_pr6(evens),
+                                             producer(evens))),
+          "the producer path differs on the per-level extension route")
     commit_ms = timed(lambda: ks.commit_to_poly(cf[:n]), 5)
     producer_ms = timed(lambda: producer(evens), 3)
     log(f"[{card}] producer path (extend, inverse FFT, commit, FK20): "
@@ -1275,6 +1341,11 @@ def main() -> int:
         return prof
 
     profile = trace("FK20", lambda: fkm.da_using_fk20_multi(coeffs), fk20_ms)
+    ext_profile = trace("DAS extension",
+                        lambda: das_extend_interleaved(fs13, evens), ext_ms)
+    check(ext_profile["device_ops"] <= 3,
+          f"the DAS extension's trace holds {ext_profile['device_ops']} "
+          "device operations")
     commit_profile = trace("commit", lambda: ks.commit_to_poly(cf[:n]),
                            commit_ms)
 
@@ -1350,7 +1421,8 @@ def main() -> int:
            lambda: fk.mont_mul_plain(FR, a, one),
            2 * 32 * nl + 32, nl * (2 * 8 * 8 + 8),
            max(checks["mont_mul_Fr"], checks["mont_mul_Fp"]))
-    # fr_scale at the DAS extension's exit: 4096 lanes
+    # fr_scale at the exit of the per-level DAS extension route: 4096
+    # lanes
     c13 = fr.from_int(pow(n, -1, r), dev)
     x13 = blob
     record("fr_scale", "mont_mul_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
@@ -1633,8 +1705,8 @@ def main() -> int:
            65 * 144, horner_products * 300,
            checks["g1_horner"], reps=3, chain=3 + 63 * (4 * 8 + 12) + 3)
     kernels[-1]["function_latency_bound_ms"] = horner_products * lat_ms
-    # fr_dif_stage at the extension's first down-sweep level: 2048
-    # butterflies over one row of 4096
+    # fr_dif_stage at the first down-sweep level of the per-level
+    # extension route: 2048 butterflies over one row of 4096
     x1 = xd[:1].clone()
     record("fr_dif_stage", "dif_stage_kernel",
            "kzg_tpu_torch/csrc/fr_kernels.cu",
@@ -1644,7 +1716,7 @@ def main() -> int:
            lambda: fk.fr_dif_stage_plain(FR, x1, fs13.reverse_roots_of_unity,
                                          11, 2),
            2048 * (4 * 32 + 32), 2048 * (2 * 8 * 8 + 8),
-           max(checks["fr_dif_stage"], checks["das_extension"]))
+           checks["fr_dif_stage"])
     # fr_signed_windows at part 2's 8192 scalars: 32 bytes read and 256
     # written a scalar, no products. It replaces plain tensor code of
     # kzg_tpu, not a Pallas kernel
@@ -1727,11 +1799,20 @@ def main() -> int:
              lambda: fk.fr_batch_inv(FR, inv_in), 2),
             ("zero-polynomial leaves, 64 x 64 factors: 64-step loop vs "
              "fr_zero_poly_leaves", lambda: loop_leaves(lidx, lvalid),
-             lambda: fk.fr_zero_poly_leaves(FR, roots13, lidx, lvalid), 2)):
+             lambda: fk.fr_zero_poly_leaves(FR, roots13, lidx, lvalid), 2),
+            *((f"DAS extension {b_} x 4096, interleaved: the per-level "
+               "route vs fr_das_block",
+               lambda b_=b_: stage_das(fs13, das_in[b_]),
+               lambda b_=b_: fk.fr_das_block(FR, das_in[b_], *das_tables,
+                                             8192, True), 10)
+              for b_ in (1, 9))):
         old_out, new_out = old_fn(), new_fn()
         check(same(old_out.reshape(new_out.shape), new_out),
               f"{key}: the old route differs from the new")
         in_turns(key, old_fn, new_fn, reps)
+    in_turns("producer path, 1 blob: the per-level extension route vs "
+             "fr_das_block", lambda: producer_pr6(evens),
+             lambda: producer(evens), 5)
 
     # fr_add_sub at the proof API's quotient numerator: 4096 Fr lanes
     # less one broadcast element; bytes only
@@ -1788,6 +1869,68 @@ def main() -> int:
                               "call_ms": timed(lambda: fft(fs20, x20), 5),
                               "bound_ms": fft20_bound[0],
                               "bound_by": fft20_bound[1]}
+    # fr_das_block at the producer's extension, 1 x 4096 interleaved: the
+    # evens read and the 8192 values written once, the twiddles once (the
+    # down-sweep's are the 2048 of its widest level, the up-sweep's odd
+    # multiples are new at every level: 4095), 24 levels of 2048 products
+    # and 4096 scales; a thread's chain is one butterfly a level and the
+    # scale. Also at 9 blobs, per launch from a trace.
+    das_bytes = 32 * (4096 + 8192 + 2048 + 4095)
+    das_products = 24 * 2048 + 4096
+    record("fr_das_block", "das_block_kernel",
+           "kzg_tpu_torch/csrc/fr_route_kernels.cu",
+           "kzg_tpu/field/pallas_kernels.py:567",
+           lambda: fk.fr_das_block(FR, das_in[1], *das_tables, 8192, True),
+           lambda: fk.fr_das_block_plain(FR, das_in[1], *das_tables, 8192,
+                                         True),
+           das_bytes, das_products * (2 * 8 * 8 + 8),
+           max(checks["fr_das_block"], checks["das_extension"]), reps=10,
+           chain=2 * 12 + 1, lat=fr_lat_ms,
+           per_call=len(fk.das_plan(12)))
+    kernels[-1]["also_replaces"] = ["kzg_tpu/field/pallas_kernels.py:658",
+                                    "kzg_tpu/field/pallas_kernels.py:514"]
+    fn = (lambda: fk.fr_das_block(FR, das_in[9], *das_tables, 8192, True))
+    launch_ms, caught = kernel_ms(fn, "das_block_kernel", 10)
+    passes = len(fk.das_plan(12))
+    b, by = bound_ms(9 * das_bytes, 9 * das_products * (2 * 8 * 8 + 8))
+    key = "9 x 4096"
+    das_variants = {key: {
+        "device_ms": None if launch_ms is None else launch_ms * passes,
+        "traced_launches": caught, "passes": passes,
+        "call_ms": timed(fn, 10), "bound_ms": b, "bound_by": by}}
+    log(f"[{card}] fr_das_block {key}: {passes} passes, "
+        f"{das_variants[key]['device_ms']} ms on the device ({caught} "
+        f"of {10 * passes} launches traced), "
+        f"{das_variants[key]['call_ms']:.4f} ms a call, bound "
+        f"{b:.3g} ms by {by}")
+    # where the default plan's device time goes at 1 x 4096: each pass
+    # launched alone through the C entry point, on the wrapper's buffers,
+    # and traced (a trace that misses a launch then leaves the others'
+    # mean right)
+    route_lib = build.library("fr_route_kernels")
+    x_1 = das_in[1]
+    odds_1 = fk.fr_das_block(FR, x_1, *das_tables, 8192)
+    out_1 = torch.empty((1, 8192, 8), dtype=torch.int32, device=dev)
+    inv_n = fk._host_words(FR.to_mont_int(pow(4096, -1, r)), fk.FR_WORDS)
+    plan12 = fk.das_plan(12)
+    per_pass = {}
+    for p_, (lo_, kk_, sw_) in enumerate(plan12):
+        last = p_ == len(plan12) - 1
+
+        def one_pass(lo_=lo_, kk_=kk_, sw_=sw_, last=last, first=p_ == 0):
+            build.check(route_lib.kzg_fr_das_block(
+                (x_1 if first else odds_1).data_ptr(),
+                (out_1 if last else odds_1).data_ptr(),
+                x_1.data_ptr() if last else None,
+                das_tables[0].data_ptr(), das_tables[1].data_ptr(), 12, lo_,
+                kk_, 13, sw_, 1, ctypes.addressof(inv_n) if last else None,
+                fk.stream_of(x_1)), "fr_das_block")
+
+        per_pass[f"lo {lo_}, {kk_} levels, sweeps {sw_}"] = kernel_ms(
+            one_pass, "das_block_kernel", 10)[0]
+    das_variants["1 x 4096, device ms a pass"] = per_pass
+    log(f"[{card}] fr_das_block 1 x 4096, device ms a pass: {per_pass}")
+    kernels[-1]["variants"] = das_variants
     # fr_zero_poly_leaves at the recovery's 64 full leaves: the factor
     # indices, 4096 roots and 64 x 128 coefficients moved once; step s of
     # a leaf needs s + 1 products
@@ -1829,6 +1972,7 @@ def main() -> int:
               "launches": path_launches, "kernels": kernels,
               "kernel_timing": timing, "fk20_profile": profile,
               "commit_profile": commit_profile,
+              "das_extension_profile": ext_profile,
               "recover_profile": recover_profile}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -42,6 +42,7 @@ SIGNATURES = {
         "kzg_fr_pow": (_I, _P, _P, _I, _P, _I, _P),
         "kzg_fr_batch_inv": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _P),
         "kzg_fr_fft_block": (_P, _P, _P) + (_I,) * 6 + (_P, _P),
+        "kzg_fr_das_block": (_P,) * 5 + (_I,) * 6 + (_P, _P),
         "kzg_fr_zero_poly_leaves": (_P, _P, _P, _I, _P),
     },
     "g1_kernels": {

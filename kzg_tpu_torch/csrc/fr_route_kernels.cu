@@ -1,6 +1,7 @@
-// The Hopper routes of K1 (mont_mul) and K2 (fr_butterfly_stage): the
-// chains of field operations that the recovery and the Fr FFT ran as one
-// small launch per operation, each now one kernel. Built by nvcc for
+// The Hopper routes of K1 (mont_mul), K2 (fr_butterfly_stage) and
+// fr_dif_stage: the chains of field operations that the recovery, the Fr
+// FFT and the DAS extension ran as one small launch per operation, each
+// now one kernel or a few passes. Built by nvcc for
 // sm_90a into a shared library with a plain C interface (loaded by
 // kzg_tpu_torch/build.py through ctypes).
 //
@@ -34,6 +35,25 @@
 //   takes 2 passes, 2^20 takes 2: bound by bytes (2 x 2 x 32 B a value
 //   and the twiddles) and the products (n/2 log2 n), both far below the
 //   per-stage route's 20 passes over the values.
+// fr_das_block: the DAS extension (kzg_tpu/ntt/das.py::_das_core_pallas:
+//   K = log2 n DIF levels on ::_butterfly_lazy_dif_fn, K DIT levels on
+//   ::_butterfly_lazy_fn, the exit scale 1/n on ::_canon_scale_fn; one
+//   launch a level there and in fr_dif_stage, K2 and fr_scale) in passes
+//   of fr_fft_block's tiles. The level of half-width 2^L pairs p with
+//   p + 2^L, j = p mod 2^L: down hi = a + b, lo = (a - b)
+//   rev[j << (log_max - 1 - L)]; up hi = a + b w, lo = a - b w with
+//   w = roots[(2j + 1) << (log_max - 2 - L)]. The down-sweep visits
+//   L = K-1 ... 0, the up-sweep 0 ... K-1, so a pass over the tiles of
+//   levels lo..lo+kk-1 runs the down levels, the up levels, or (lo = 0)
+//   both, the two middle sweeps meeting in shared memory: one pass up to
+//   fr_fft_block's widest tile (2^11 values), three above (down top, both
+//   bottom, up top). The same tile helpers run both kernels. The last
+//   pass scales by 1/n in its store and may interleave: odds at 2p + 1
+//   and the evens copied to 2p. Bound by latency at the PeerDAS width
+//   (n = 4096, a few blobs): one butterfly a thread a level, so a
+//   thread's chain is 2K + 1 products; three passes spread a blob over
+//   n / 64 blocks (one block a blob would run its 53,248 products on one
+//   SM).
 // fr_zero_poly_leaves: the zero polynomial's leaves, prod (x - r) over
 //   up to 64 factors each (plain tensor code,
 //   kzg_tpu/das/zero_poly.py:34-51), one block a leaf and one thread a
@@ -59,6 +79,7 @@ constexpr int kLeafFactors = 64;
 
 enum { kAdd = 0, kSub = 1, kNeg = 2 };
 enum { kInvFull = 0, kInvUp = 1, kInvDown = 2 };
+enum { kDasDown = 1, kDasUp = 2 };
 
 // A static exponent by value: its words, LSB first, and its bit length.
 struct Exponent {
@@ -239,73 +260,154 @@ __device__ __forceinline__ size_t bit_reverse(size_t p, int bits) {
   return bits ? (size_t)(__brev((unsigned)p) >> (32 - bits)) : 0;
 }
 
+// A pass's tile: block = (row, tile), tile = (hi, o); the tile's value i
+// is position base + (i << lo) of the row that starts at row0. Its values
+// lie word-major in shared memory, ld words a word's row (a pad of
+// kFftPad against bank conflicts).
+struct Tile {
+  size_t row0, o, base;
+  int lo, size, ld;
+};
+
+__device__ __forceinline__ Tile tile_of(int log_n, int lo, int kk) {
+  const size_t blk = blockIdx.x;
+  const size_t tid = blk & (((size_t)1 << (log_n - kk)) - 1);
+  Tile t;
+  t.row0 = (blk >> (log_n - kk)) << log_n;
+  t.o = tid & (((size_t)1 << lo) - 1);
+  t.base = ((tid >> lo) << (lo + kk)) + t.o;
+  t.lo = lo;
+  t.size = 1 << kk;
+  t.ld = t.size + kFftPad;
+  return t;
+}
+
+// The tile from src into sm, from the bit-reversed positions over
+// brev_bits bits where brev_bits > 0.
+__device__ __forceinline__ void tile_load(uint32_t* sm, const Tile& t,
+                                          const int32_t* src, int brev_bits) {
+  for (int k = threadIdx.x; k < 8 * t.size; k += blockDim.x) {
+    const int i = k >> 3, w = k & 7;
+    size_t p = t.base + ((size_t)i << t.lo);
+    if (brev_bits) p = bit_reverse(p, brev_bits);
+    sm[w * t.ld + i] = (uint32_t)src[(t.row0 + p) * 8 + w];
+  }
+  __syncthreads();
+}
+
+// One butterfly stage of half-width 2^st over the tile in sm: value i
+// (bit st clear) pairs with i + 2^st, j = o + ((i mod 2^st) << lo), and
+// takes w = tws[j << shift], or tws[(2j + 1) << shift] (kOdd), or w = 1
+// where tws is null (the plain DIT form only: the FFT's first stage).
+// DIT: hi = a + b w, lo = a - b w; DIF: hi = a + b, lo = (a - b) w.
+template <bool kDif, bool kOdd>
+__device__ __forceinline__ void tile_stage(uint32_t* sm, const Tile& t,
+                                           int st,
+                                           const int32_t* __restrict__ tws,
+                                           int shift) {
+  const int half = 1 << st;
+  for (int b = threadIdx.x; b < t.size / 2; b += blockDim.x) {
+    const int jl = b & (half - 1);
+    const int i = ((b >> st) << (st + 1)) | jl;
+    uint32_t x[8], y[8], u[8], tw[8];
+#pragma unroll
+    for (int w = 0; w < 8; w++) {
+      x[w] = sm[w * t.ld + i];
+      y[w] = sm[w * t.ld + i + half];
+    }
+    // no run-time test of tws in the DAS forms: it made them 7 % slower
+    // on an H100
+    const bool has_tw = kDif || kOdd || tws;
+    if (has_tw) {
+      const size_t j = t.o + ((size_t)jl << t.lo);
+      kzg::load<8>(tw, tws + ((kOdd ? 2 * j + 1 : j) << shift) * 8);
+    }
+    if (!kDif && has_tw) kzg::mul<8>(y, y, tw);
+    kzg::add<8>(u, x, y);
+    kzg::sub<8>(x, x, y);
+    if (kDif && has_tw) kzg::mul<8>(x, x, tw);
+#pragma unroll
+    for (int w = 0; w < 8; w++) {
+      sm[w * t.ld + i] = u[w];
+      sm[w * t.ld + i + half] = x[w];
+    }
+  }
+  __syncthreads();
+}
+
+// Every value of the tile in sm times scale.
+__device__ __forceinline__ void tile_scale(uint32_t* sm, const Tile& t,
+                                           const FrConst& scale) {
+  for (int i = threadIdx.x; i < t.size; i += blockDim.x) {
+    uint32_t x[8];
+#pragma unroll
+    for (int w = 0; w < 8; w++) x[w] = sm[w * t.ld + i];
+    kzg::mul<8>(x, x, scale.w);
+#pragma unroll
+    for (int w = 0; w < 8; w++) sm[w * t.ld + i] = x[w];
+  }
+  __syncthreads();
+}
+
+// The tile from sm into dst; with evens, the interleave: value p to
+// 2p + 1 and evens' value p to 2p.
+__device__ __forceinline__ void tile_store(const uint32_t* sm, const Tile& t,
+                                           int32_t* dst,
+                                           const int32_t* __restrict__ evens) {
+  for (int k = threadIdx.x; k < 8 * t.size; k += blockDim.x) {
+    const int i = k >> 3, w = k & 7;
+    const size_t p = t.row0 + t.base + ((size_t)i << t.lo);
+    if (evens) {
+      dst[(2 * p + 1) * 8 + w] = (int32_t)sm[w * t.ld + i];
+      dst[2 * p * 8 + w] = evens[p * 8 + w];
+    } else {
+      dst[p * 8 + w] = (int32_t)sm[w * t.ld + i];
+    }
+  }
+}
+
 // One pass of kk DIT stages over tiles of 2^kk values; see the head of
-// the file. Block = (row, tile), tile = (hi, o). src may equal dst
-// unless brev: each block reads its whole tile before it writes.
+// the file. src may equal dst unless brev: each block reads its whole
+// tile before it writes.
 __global__ void __launch_bounds__(kFftThreads)
     fft_block_kernel(const int32_t* src, int32_t* dst,
                      const int32_t* __restrict__ roots, int log_n, int lo,
                      int kk, int log_max, int brev, int scale_on,
                      FrConst scale) {
   extern __shared__ uint32_t sm[];
-  const int tile = 1 << kk;
-  const int ld = tile + kFftPad;
-  const size_t blk = blockIdx.x;
-  const size_t row0 = (blk >> (log_n - kk)) << log_n;
-  const size_t tid = blk & (((size_t)1 << (log_n - kk)) - 1);
-  const size_t o = tid & (((size_t)1 << lo) - 1);
-  const size_t base = ((tid >> lo) << (lo + kk)) + o;
-  for (int k = threadIdx.x; k < 8 * tile; k += blockDim.x) {
-    const int i = k >> 3, w = k & 7;
-    size_t p = base + ((size_t)i << lo);
-    if (brev) p = bit_reverse(p, log_n);
-    sm[w * ld + i] = (uint32_t)src[(row0 + p) * 8 + w];
-  }
-  __syncthreads();
+  const Tile t = tile_of(log_n, lo, kk);
+  tile_load(sm, t, src, brev ? log_n : 0);
   for (int st = 0; st < kk; st++) {
+    // stage s of the transform; the first one's twiddle is roots[0] = 1
     const int s = lo + 1 + st;
-    const int half = 1 << st;
-    for (int b = threadIdx.x; b < tile / 2; b += blockDim.x) {
-      const int jl = b & (half - 1);
-      const int i = ((b >> st) << (st + 1)) | jl;
-      uint32_t x[8], y[8], u[8];
-#pragma unroll
-      for (int w = 0; w < 8; w++) {
-        x[w] = sm[w * ld + i];
-        y[w] = sm[w * ld + i + half];
-      }
-      // the first stage's twiddle is roots[0] = 1: no multiply
-      if (s > 1) {
-        uint32_t tw[8];
-        const size_t j = o + ((size_t)jl << lo);
-        kzg::load<8>(tw, roots + (j << (log_max - s)) * 8);
-        kzg::mul<8>(y, y, tw);
-      }
-      kzg::add<8>(u, x, y);
-      kzg::sub<8>(x, x, y);
-#pragma unroll
-      for (int w = 0; w < 8; w++) {
-        sm[w * ld + i] = u[w];
-        sm[w * ld + i + half] = x[w];
-      }
-    }
-    __syncthreads();
+    tile_stage<false, false>(sm, t, st, s > 1 ? roots : nullptr,
+                             log_max - s);
   }
-  if (scale_on) {
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      uint32_t x[8];
-#pragma unroll
-      for (int w = 0; w < 8; w++) x[w] = sm[w * ld + i];
-      kzg::mul<8>(x, x, scale.w);
-#pragma unroll
-      for (int w = 0; w < 8; w++) sm[w * ld + i] = x[w];
-    }
-    __syncthreads();
-  }
-  for (int k = threadIdx.x; k < 8 * tile; k += blockDim.x) {
-    const int i = k >> 3, w = k & 7;
-    dst[(row0 + base + ((size_t)i << lo)) * 8 + w] = (int32_t)sm[w * ld + i];
-  }
+  if (scale_on) tile_scale(sm, t, scale);
+  tile_store(sm, t, dst, nullptr);
+}
+
+// One pass of the DAS extension over tiles of 2^kk values; see the head
+// of the file. src may equal dst unless evens is given: dst is then the
+// interleaved output, 2n values a row.
+__global__ void __launch_bounds__(kFftThreads)
+    das_block_kernel(const int32_t* src, int32_t* dst,
+                     const int32_t* __restrict__ evens,
+                     const int32_t* __restrict__ rev_roots,
+                     const int32_t* __restrict__ roots, int log_n, int lo,
+                     int kk, int log_max, int sweeps, int scale_on,
+                     FrConst scale) {
+  extern __shared__ uint32_t sm[];
+  const Tile t = tile_of(log_n, lo, kk);
+  tile_load(sm, t, src, 0);
+  if (sweeps & kDasDown)
+    for (int st = kk - 1; st >= 0; st--)
+      tile_stage<true, false>(sm, t, st, rev_roots, log_max - 1 - lo - st);
+  if (sweeps & kDasUp)
+    for (int st = 0; st < kk; st++)
+      tile_stage<false, true>(sm, t, st, roots, log_max - 2 - lo - st);
+  if (scale_on) tile_scale(sm, t, scale);
+  tile_store(sm, t, dst, evens);
 }
 
 // Leaf g: factor s is roots[factors[g][s]], or none where that is < 0.
@@ -403,6 +505,37 @@ extern "C" int kzg_fr_batch_inv(void* out, const void* in, int n, int chunk,
   return (int)cudaGetLastError();
 }
 
+// The launch of a pass over `rows` vectors of 2^log_n values in tiles of
+// 2^kk: one block a tile, the tile's words in dynamic shared memory (the
+// kernel's limit raised to the widest tile at its first launch) and
+// scale_words (host, Montgomery words) or null.
+struct TilePass {
+  unsigned grid;
+  int threads, smem;
+  FrConst scale;
+};
+
+static cudaError_t tile_pass(const void* kernel, bool* raised, int log_n,
+                             int kk, int rows, const void* scale_words,
+                             TilePass* pass) {
+  if (!*raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        8 * ((1 << kFftTileLog) + kFftPad) * (int)sizeof(uint32_t));
+    if (err != cudaSuccess) return err;
+    *raised = true;
+  }
+  const int tile = 1 << kk;
+  pass->grid = (unsigned)rows << (log_n - kk);
+  pass->threads = std::min(std::max(tile / 2, 32), kFftThreads);
+  pass->smem = 8 * (tile + kFftPad) * (int)sizeof(uint32_t);
+  pass->scale = {};
+  if (scale_words)
+    for (int w = 0; w < 8; w++)
+      pass->scale.w[w] = ((const uint32_t*)scale_words)[w];
+  return cudaSuccess;
+}
+
 // One pass over `rows` transforms of 2^log_n values; scale_words (host,
 // Montgomery words) or null.
 extern "C" int kzg_fr_fft_block(const void* src, void* dst,
@@ -412,24 +545,42 @@ extern "C" int kzg_fr_fft_block(const void* src, void* dst,
   if (kk < 0 || kk > kFftTileLog || lo + kk > log_n || log_n > log_max ||
       log_max > 31 || (brev && lo != 0))
     return (int)cudaErrorInvalidValue;
-  const int tile = 1 << kk;
-  const int smem = 8 * (tile + kFftPad) * (int)sizeof(uint32_t);
   static bool raised = false;
-  if (!raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fft_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        8 * ((1 << kFftTileLog) + kFftPad) * (int)sizeof(uint32_t));
-    if (err != cudaSuccess) return (int)err;
-    raised = true;
-  }
-  FrConst scale = {};
-  if (scale_words)
-    for (int w = 0; w < 8; w++) scale.w[w] = ((const uint32_t*)scale_words)[w];
-  const int threads = std::min(std::max(tile / 2, 32), kFftThreads);
-  const unsigned grid = (unsigned)rows << (log_n - kk);
-  fft_block_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  TilePass pass;
+  const cudaError_t err = tile_pass((const void*)fft_block_kernel, &raised,
+                                    log_n, kk, rows, scale_words, &pass);
+  if (err != cudaSuccess) return (int)err;
+  fft_block_kernel<<<pass.grid, pass.threads, pass.smem,
+                     (cudaStream_t)stream>>>(
       (const int32_t*)src, (int32_t*)dst, (const int32_t*)roots, log_n, lo,
-      kk, log_max, brev, scale_words != nullptr, scale);
+      kk, log_max, brev, scale_words != nullptr, pass.scale);
+  return (int)cudaGetLastError();
+}
+
+// One pass of the DAS extension over `rows` vectors of 2^log_n values
+// on the 2^log_max domain (rev_roots and roots its inverse and forward
+// roots tables). evens: the extension's input, for the last pass to
+// interleave with (dst then holds 2n values a row), or null; scale_words
+// (host, Montgomery words) or null.
+extern "C" int kzg_fr_das_block(const void* src, void* dst, const void* evens,
+                                const void* rev_roots, const void* roots,
+                                int log_n, int lo, int kk, int log_max,
+                                int sweeps, int rows, const void* scale_words,
+                                void* stream) {
+  if (kk < 0 || kk > kFftTileLog || lo < 0 || lo + kk > log_n ||
+      log_n + 1 > log_max || log_max > 31 || sweeps < kDasDown ||
+      sweeps > (kDasDown | kDasUp) || (evens && src == dst))
+    return (int)cudaErrorInvalidValue;
+  static bool raised = false;
+  TilePass pass;
+  const cudaError_t err = tile_pass((const void*)das_block_kernel, &raised,
+                                    log_n, kk, rows, scale_words, &pass);
+  if (err != cudaSuccess) return (int)err;
+  das_block_kernel<<<pass.grid, pass.threads, pass.smem,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)src, (int32_t*)dst, (const int32_t*)evens,
+      (const int32_t*)rev_roots, (const int32_t*)roots, log_n, lo, kk,
+      log_max, sweeps, scale_words != nullptr, pass.scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 """Field kernels K1 (`mont_mul`, and its `fr_scale` exit form), K2
 (`fr_butterfly_stage`), `fr_dif_stage`, `butterfly` and the digit
-recoding `fr_signed_windows` (csrc/fr_kernels.cu), and the routes of K1
-and K2 (csrc/fr_route_kernels.cu): `fr_add_sub`, `fr_pow`,
-`fr_batch_inv`, `fr_fft_block` and `fr_zero_poly_leaves`, each with its
-plain PyTorch version.
+recoding `fr_signed_windows` (csrc/fr_kernels.cu), and the routes of K1,
+K2 and `fr_dif_stage` (csrc/fr_route_kernels.cu): `fr_add_sub`, `fr_pow`,
+`fr_batch_inv`, `fr_fft_block`, `fr_das_block` and `fr_zero_poly_leaves`,
+each with its plain PyTorch version.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to the
@@ -26,7 +26,8 @@ from .limbs import FieldSpec
 LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
             "fr_dif_stage": 0, "butterfly": 0, "fr_signed_windows": 0,
             "fr_add_sub": 0, "fr_pow": 0, "fr_batch_inv": 0,
-            "fr_fft_block": 0, "fr_zero_poly_leaves": 0}
+            "fr_fft_block": 0, "fr_das_block": 0,
+            "fr_zero_poly_leaves": 0}
 
 FR_WORDS = 8
 SIGNED_WINDOWS = 64
@@ -158,6 +159,17 @@ def _merged(hi, lo, shape):
     return torch.stack((hi, lo), dim=2).reshape(shape)
 
 
+def _twiddles(roots, log_half: int, stride: int, offset):
+    """roots[offset + j * stride] for j < 2^log_half, shaped to broadcast
+    against a stage's halves: (half, N), or (rows, 1, half, N) for an
+    int64 tensor `offset` of one offset a row."""
+    half = 1 << log_half
+    if torch.is_tensor(offset):
+        steps = torch.arange(half, device=roots.device) * stride
+        return roots[offset[:, None] + steps][:, None]
+    return roots[offset: offset + half * stride: stride]
+
+
 def fr_butterfly_stage_plain(spec: FieldSpec, x, roots, log_half: int,
                              stride: int, offset=0) -> torch.Tensor:
     """One DIT stage over x (batch, n, 8): within each group of
@@ -166,13 +178,8 @@ def fr_butterfly_stage_plain(spec: FieldSpec, x, roots, log_half: int,
     is an int, or an int64 tensor (batch,) of one offset a row (the
     tiles of `fr_fft_block_plain`). Returns a new tensor."""
     a, b = _halves(x, log_half)
-    half = 1 << log_half
-    if torch.is_tensor(offset):
-        steps = torch.arange(half, device=x.device) * stride
-        tw = roots[offset[:, None] + steps][:, None]
-        b = limbs.mont_mul_plain(spec, b, tw.expand(b.shape))
-    elif log_half > 0 or offset:
-        tw = roots[offset: offset + half * stride: stride]
+    if torch.is_tensor(offset) or log_half > 0 or offset:
+        tw = _twiddles(roots, log_half, stride, offset)
         b = limbs.mont_mul_plain(spec, b, tw.expand(b.shape))
     return _merged(limbs.add(spec, a, b), limbs.sub(spec, a, b), x.shape)
 
@@ -217,12 +224,14 @@ def fr_butterfly_stage(spec: FieldSpec, x, roots, log_half: int,
 
 
 def fr_dif_stage_plain(spec: FieldSpec, x, roots, log_half: int,
-                       stride: int) -> torch.Tensor:
+                       stride: int, offset=0) -> torch.Tensor:
     """One DIF stage over x (batch, n, 8): within each group of
     m = 2^(log_half+1), position j pairs with j + m/2;
-    hi = a + b, lo = (a - b) * roots[j * stride]. Returns a new tensor."""
+    hi = a + b, lo = (a - b) * roots[offset + j * stride]. `offset` is an
+    int, or an int64 tensor (batch,) of one offset a row (the tiles of
+    `fr_das_block_plain`). Returns a new tensor."""
     a, b = _halves(x, log_half)
-    tw = roots[: (1 << log_half) * stride: stride]
+    tw = _twiddles(roots, log_half, stride, offset)
     lo = limbs.mont_mul_plain(spec, limbs.sub(spec, a, b),
                               tw.expand(a.shape))
     return _merged(limbs.add(spec, a, b), lo, x.shape)
@@ -293,6 +302,8 @@ INV_BLOCK_LANES = 8192
 _INV_FULL, _INV_UP, _INV_DOWN = 0, 1, 2
 # fr_fft_block: the widest tile, 2^11 values (64 KiB of shared memory)
 FFT_TILE_LOG = 11
+# fr_das_block: the sweeps of a pass (its tiles are fr_fft_block's)
+DAS_DOWN, DAS_UP = 1, 2
 # fr_zero_poly_leaves: factors a leaf (the reference uses <= 63,
 # zero_poly.go:17) and coefficients a leaf (degree <= 64 fits, a power of
 # two)
@@ -559,6 +570,120 @@ def fr_fft_block(spec: FieldSpec, x, roots, max_width: int, scale=None,
             stream_of(x)), "fr_fft_block")
         src, lo = out, lo + kk
     return out
+
+
+def das_plan(log_n: int, max_tile_log: int = FFT_TILE_LOG) -> tuple:
+    """Passes (lo, kk, sweeps) of fr_das_block over the K = log_n levels:
+    `fft_plan`'s split, the smallest part the bottom tile (lo = 0), which
+    runs its levels down and straight back up (DAS_DOWN | DAS_UP); the
+    other parts run their down levels before it, top first, and their up
+    levels after it. One pass up to max_tile_log levels, three up to
+    twice that."""
+    if not 0 < max_tile_log <= FFT_TILE_LOG:
+        raise ValueError("fr_das_block: bad tile")
+    sizes = fft_plan(log_n, max_tile_log)[::-1]
+    top = [(sum(sizes[:i]), kk) for i, kk in enumerate(sizes)][1:]
+    return (tuple((lo, kk, DAS_DOWN) for lo, kk in reversed(top))
+            + ((0, sizes[0], DAS_DOWN | DAS_UP),)
+            + tuple((lo, kk, DAS_UP) for lo, kk in top))
+
+
+def _das_check(x, max_width: int) -> int:
+    """Validate the extension's operand (..., n, 8); -> log2 n."""
+    if x.dim() < 2 or x.shape[-1] != FR_WORDS:
+        raise ValueError("fr_das_block: x must be (..., n, 8)")
+    n = x.shape[-2]
+    log_n = n.bit_length() - 1
+    if (n < 1 or n != 1 << log_n or max_width & (max_width - 1)
+            or 2 * n > max_width):
+        raise ValueError("fr_das_block: need a power-of-two count of values "
+                         "and a domain at least twice as wide")
+    return log_n
+
+
+def fr_das_block_plain(spec: FieldSpec, x, rev_roots, roots, max_width: int,
+                       interleave: bool = False,
+                       max_tile_log: int = FFT_TILE_LOG):
+    """The kernel's passes on the plain engine: for each pass of
+    `das_plan` the tiles gathered by the kernel's index formula, its down
+    levels as `fr_dif_stage_plain` and its up levels as
+    `fr_butterfly_stage_plain`, each with one twiddle offset a tile, then
+    the scale by 1/n and the interleave. Returns a new tensor."""
+    log_n = _das_check(x, max_width)
+    log_max = max_width.bit_length() - 1
+    lead, n = x.shape[:-2], x.shape[-2]
+    x = x.reshape(-1, n, FR_WORDS)
+    shape = x.shape
+    y = x
+    for lo, kk, sweeps in das_plan(log_n, max_tile_log):
+        t = _tiles(y, lo, kk)
+        o = torch.arange(t.shape[0], device=x.device) % (1 << lo)
+        if sweeps & DAS_DOWN:
+            for st in range(kk - 1, -1, -1):
+                s = 1 << (log_max - 1 - lo - st)
+                t = fr_dif_stage_plain(spec, t, rev_roots, st, s << lo, o * s)
+        if sweeps & DAS_UP:
+            for st in range(kk):
+                s = 1 << (log_max - 2 - lo - st)
+                t = fr_butterfly_stage_plain(spec, t, roots, st,
+                                             (2 * s) << lo, s + o * (2 * s))
+        y = _untiles(t, shape, lo, kk)
+    c = spec.words([spec.to_mont_int(pow(n, -1, spec.modulus))],
+                   x.device)[0]
+    y = fr_scale_plain(spec, y, c)
+    if interleave:
+        y = torch.stack((x, y), dim=2)
+    return y.reshape(lead + ((2 if interleave else 1) * n, FR_WORDS))
+
+
+def fr_das_block(spec: FieldSpec, x, rev_roots, roots, max_width: int,
+                 interleave: bool = False,
+                 max_tile_log: int = FFT_TILE_LOG) -> torch.Tensor:
+    """The DAS extension of x (..., n, 8), Fr values at the even points
+    w^(2i) of the max_width domain: their polynomial's values at the odd
+    points, (..., n, 8), or with `interleave` the extended vectors
+    (..., 2n, 8) [e0, o0, e1, o1, ...]. rev_roots and roots are the
+    domain's inverse and forward roots tables. One launch a pass of
+    `das_plan`: the K DIF levels, the K DIT levels and the scale by 1/n
+    (replaces kzg_tpu/field/pallas_kernels.py::_butterfly_lazy_dif_fn,
+    ::_butterfly_lazy_fn and ::_canon_scale_fn, one launch a level, in
+    kzg_tpu/ntt/das.py::_das_core_pallas). Returns a new tensor."""
+    log_n = _das_check(x, max_width)
+    plan = das_plan(log_n, max_tile_log)
+    if x.device.type == "cpu":
+        return fr_das_block_plain(spec, x, rev_roots, roots, max_width,
+                                  interleave, max_tile_log)
+    lead, n = x.shape[:-2], x.shape[-2]
+    x = x.reshape(-1, n, FR_WORDS).contiguous()
+    for t in (x, rev_roots, roots):
+        check_words(t, FR_WORDS, "fr_das_block")
+        if t.device != x.device:
+            raise ValueError("fr_das_block: operands on different devices")
+    if min(rev_roots.shape[0], roots.shape[0]) < max_width // 2:
+        raise ValueError("fr_das_block: roots tables too short")
+    batch = x.shape[0]
+    odds = torch.empty_like(x)
+    out = (torch.empty((batch, 2 * n, FR_WORDS), dtype=x.dtype,
+                       device=x.device) if interleave else odds)
+    out_shape = lead + out.shape[-2:]
+    if not batch:
+        return out.reshape(out_shape)
+    lib = build.library("fr_route_kernels")
+    words = _host_words(spec.to_mont_int(pow(n, -1, spec.modulus)), FR_WORDS)
+    stream = stream_of(x)
+    src = x
+    for p, (lo, kk, sweeps) in enumerate(plan):
+        last = p == len(plan) - 1
+        LAUNCHES["fr_das_block"] += 1
+        build.check(lib.kzg_fr_das_block(
+            src.data_ptr(), (out if last else odds).data_ptr(),
+            x.data_ptr() if last and interleave else None,
+            rev_roots.data_ptr(), roots.data_ptr(), log_n, lo, kk,
+            max_width.bit_length() - 1, sweeps, batch,
+            ctypes.addressof(words) if last else None, stream),
+            "fr_das_block")
+        src = odds
+    return out.reshape(out_shape)
 
 
 def fr_zero_poly_leaves_plain(spec: FieldSpec, roots, root_idx, valid):

@@ -9,8 +9,11 @@ a stage (the Fr FFT of the port up to its block kernel). Prints one JSON
 line: the card, the transform's time (CUDA events), each stage's time,
 K1 (`mont_mul`) at 2^20 lanes, the registers ptxas gave the Fr kernels,
 and with --routes the route kernels: `fr_fft_block` at 2^20 and 8192, a
-one-lane `fr_pow`, `fr_batch_inv` at 8192 lanes and
-`fr_zero_poly_leaves` at 64 leaves. To compare two versions
+one-lane `fr_pow`, `fr_batch_inv` at 8192 lanes,
+`fr_zero_poly_leaves` at 64 leaves and, where the tree has it,
+`fr_das_block` (the DAS extension, interleaved) at 1 and 9 blobs of
+4096, its call (CUDA events) and each launch's device time (a
+torch.profiler trace). To compare two versions
 of csrc/field.cuh, make a second tree that differs only in that header
 and run the two in turns (old, new, new, old) on one card:
 
@@ -52,6 +55,26 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, match: str, reps: int) -> tuple:
+    """(mean device ms of one launch of the kernel whose name holds
+    `match`, launches caught) over `reps` calls of fn, from a
+    torch.profiler trace, which may miss some launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CUDA and match in e.name]
+    return (sum(mine) / 1e3 / len(mine), len(mine)) if mine else (None, 0)
 
 
 def main() -> int:
@@ -129,6 +152,16 @@ def main() -> int:
         idx = np.arange(64 * 64, dtype=np.int32).reshape(64, 64)
         out["leaves_64_ms"] = cuda_ms(lambda: fk.fr_zero_poly_leaves(
             fr.SPEC, roots, idx, idx >= 0), REPS)
+        if hasattr(fk, "fr_das_block"):
+            fs13 = FFTSettings(13, dev)
+            tables = (fs13.reverse_roots_of_unity,
+                      fs13.expanded_roots_of_unity)
+            for b in (1, 9):
+                xb = x[0, :b * 4096].reshape(b, 4096, 8).contiguous()
+                fn = (lambda xb=xb: fk.fr_das_block(fr.SPEC, xb, *tables,
+                                                    8192, True))
+                out[f"das_{b}_call_ms"] = cuda_ms(fn, REPS)
+                out[f"das_{b}_launch_ms"] = device_ms(fn, "das_block", REPS)
     out["registers"] = regs
     print(json.dumps(out))
     return 0

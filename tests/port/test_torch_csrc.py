@@ -160,6 +160,30 @@ def test_route_layout_constants():
     assert 8 * ((1 << fk.FFT_TILE_LOG) + 4) * 4 <= 232448
 
 
+def test_das_block_entry_point():
+    """fr_das_block's C entry point is bound with its argument count, its
+    sweep codes equal the wrapper's, which plans the passes, and it takes
+    fr_fft_block's tiles: the same widest tile, threads and launch
+    set-up."""
+    from kzg_tpu_torch.field import kernels as fk
+
+    fn = "kzg_fr_das_block"
+    text = source("fr_route_kernels.cu")
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       text).group(1).split(",")
+    assert len(params) == len(build.SIGNATURES["fr_route_kernels"][fn]) == 13
+    assert "enum { kDasDown = 1, kDasUp = 2 };" in text
+    assert (fk.DAS_DOWN, fk.DAS_UP) == (1, 2)
+    body = text[text.index('extern "C" int ' + fn):]
+    body = body[:body.index("\n}\n")]
+    assert "kk > kFftTileLog" in body and "tile_pass(" in body
+    assert "__launch_bounds__(kFftThreads)\n    das_block_kernel" in text
+    assert fk.das_plan(20) == ((10, 10, fk.DAS_DOWN),
+                               (0, 10, fk.DAS_DOWN | fk.DAS_UP),
+                               (10, 10, fk.DAS_UP))
+    assert max(kk for _, kk, _ in fk.das_plan(22)) == fk.FFT_TILE_LOG
+
+
 @pytest.mark.parametrize("fn,kernel,argc", [
     ("kzg_fr_add_sub", "add_sub_kernel", 8),
     ("kzg_fr_pow", "pow_kernel", 7)])

@@ -179,6 +179,8 @@ def test_wrappers_refuse_non_cpu_tensors():
         kernels.fr_batch_inv(fr.SPEC, meta)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_fft_block(fr.SPEC, meta.reshape(1, 4, 8), meta, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fr_das_block(fr.SPEC, meta.reshape(1, 4, 8), meta, meta, 16)
     idx = np.zeros((1, kernels.LEAF_FACTORS), dtype=np.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fr_zero_poly_leaves(fr.SPEC, meta, idx, idx == 0)
@@ -186,7 +188,8 @@ def test_wrappers_refuse_non_cpu_tensors():
     assert set(kernels.LAUNCHES) == {
         "mont_mul", "fr_scale", "fr_butterfly_stage", "fr_dif_stage",
         "butterfly", "fr_signed_windows", "fr_add_sub", "fr_pow",
-        "fr_batch_inv", "fr_fft_block", "fr_zero_poly_leaves"}
+        "fr_batch_inv", "fr_fft_block", "fr_das_block",
+        "fr_zero_poly_leaves"}
 
 
 @pytest.mark.parametrize("name", ["Fr", "Fp"])
