@@ -8,9 +8,12 @@ Phases; any failure raises and the script exits non-zero with no result:
      in parallel), print each kernel's registers, stack frame and spill
      bytes from ptxas, and the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, bit
-     for bit, at the main path's shapes (`butterfly`, on no path, at 2^16
-     Fr and Fp lanes, with one broadcast twiddle and against Python ints;
-     the digit recoding fr_signed_windows at part 2's 8192 scalars;
+     for bit, at the main path's shapes (`butterfly`, on no path, at 2^16,
+     2^16 - 3 and 2^20 Fr and Fp lanes, per-lane and with one broadcast
+     twiddle, and on a few lanes against Python ints; the digit recoding
+     fr_signed_windows at part 2's 8192 scalars and at 9 x 4096, from
+     Montgomery words, the ends of the range included, and
+     fr.scalar_windows_signed in one launch of it;
      the G1 FFT stage at 16 points, dense and 4 x 4, and at 128 points
      dense, and at 16 points summing to zero (an output at infinity), and K4 under a forced radix-2 plan at 128, whose transform
      must equal the dense one in affine form; the window tables and the
@@ -39,8 +42,9 @@ Phases; any failure raises and the script exits non-zero with no result:
      4096 points, FK20MultiSettings(n2=8192, l=64) with its fixed-base
      tables (built and counted as the setup path), blob -> coefficients
      (inverse FFT) -> da_using_fk20_multi. The launch counters of its
-     kernels must be > 0; the 128 proofs must equal the same call on the
-     plain path on the card and an exact host oracle ([q(s)]G for the
+     kernels must be > 0 and K1's (mont_mul) 0; the 128 proofs must
+     equal the same call on the plain path on the card and an exact host
+     oracle ([q(s)]G for the
      known secret). The plain path rebuilds the settings' 64-window
      tables on the plain version and they must equal the kernel's; part
      2's fixed-base product at the path's 8192 lanes must equal its plain
@@ -53,8 +57,8 @@ Phases; any failure raises and the script exits non-zero with no result:
      (top half zero) -> commit_to_poly (a 4096-point MSM: one fixed-base
      product on the CRS tables and one g1_sum) -> fk20_multi_da_optimized.
      The launch counters of its kernels must be > 0, and g1_double's,
-     fr_dif_stage's, fr_butterfly_stage's and fr_scale's 0; the extension
-     must equal the plain path's, the commitment the host oracle [p(s)]G,
+     mont_mul's, fr_dif_stage's, fr_butterfly_stage's and fr_scale's 0;
+     the extension must equal the plain path's, the commitment the host oracle [p(s)]G,
      the variable-base lin_comb_g1 and the plain route on the plain CRS
      tables, the proofs the host oracle;
   6. the reconstruction path at the same shape (a PeerDAS node that holds
@@ -95,7 +99,8 @@ Phases; any failure raises and the script exits non-zero with no result:
      the DAS extension's trace (at most 3 device operations) and, in
      turns at 1 and 9 blobs, the per-level route against fr_das_block,
      and the producer path on the per-level extension route against it
-     on fr_das_block.
+     on fr_das_block; fr_signed_windows' and butterfly's rows at each of
+     their shapes.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -125,10 +130,10 @@ PEAK_OPS = 67e12
 OUT_DIR = "chiprun_out"
 # the kernels every FK20 multi call runs (the blob's inverse FFT and the
 # Toeplitz coefficients' FFTs on fr_fft_block, part 2's digits and
-# fixed-base product, the l-way sum, the dense G1 FFTs)
-PATH_KERNELS = ("mont_mul", "fr_fft_block", "fr_signed_windows",
-                "g1_fixed_base_mul", "g1_window_table", "g1_fft_stage",
-                "g1_sum")
+# fixed-base product, the l-way sum, the dense G1 FFTs); K1 (mont_mul) it
+# must launch no time: the recoding reduces Montgomery words itself
+PATH_KERNELS = ("fr_fft_block", "fr_signed_windows", "g1_fixed_base_mul",
+                "g1_window_table", "g1_fft_stage", "g1_sum")
 # and the DAS extension's (the producer path)
 EXTENSION_KERNELS = ("fr_das_block",)
 # and the per-level route that fr_das_block replaced, which the producer
@@ -286,8 +291,9 @@ def plain_path():
 
 
 def symbol(mangled: str) -> str:
-    """The qualified name in an Itanium-mangled symbol, without template
-    or function arguments: enough to tell ptxas's functions apart."""
+    """The qualified name in an Itanium-mangled symbol with its template
+    arguments of literal values (ints, bools), without the function
+    arguments: enough to tell ptxas's functions apart."""
     s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     parts = []
     while s[:1].isdigit():
@@ -295,9 +301,16 @@ def symbol(mangled: str) -> str:
         n = int(s[:k])
         parts.append(s[k:k + n])
         s = s[k + n:]
-    return "::".join(p for p in parts
-                     if not p.startswith(("_GLOBAL__N", "_INTERNAL"))) \
-        or mangled
+    name = "::".join(p for p in parts
+                     if not p.startswith(("_GLOBAL__N", "_INTERNAL")))
+    if s.startswith("I") and name:
+        args, s = [], s[1:]
+        while s.startswith("L") and "E" in s:
+            kind, value, s = s[1], s[2:s.index("E")], s[s.index("E") + 1:]
+            args.append({"b1": "true", "b0": "false"}.get(kind + value,
+                                                          value))
+        name += f"<{', '.join(args)}>"
+    return name or mangled
 
 
 def ptxas_report(lib: str, text: str) -> dict:
@@ -442,8 +455,19 @@ def main() -> int:
         y = fk.fr_scale(fr.SPEC, y, fr.from_int(pow(n_, -1, r), x.device))
         return torch.stack((x, y), dim=2).reshape(rows_, 2 * n_, fr.N_WORDS)
 
+    def butterfly_pair(spec, a_, b_, tw_):
+        """The butterfly kernel's (hi, lo) and its plain version's, which
+        must be equal word for word."""
+        got_ = fk.butterfly(spec, a_, b_, tw_)
+        want_ = fk.butterfly_plain(spec, a_, b_, tw_)
+        check(same(got_, want_),
+              f"butterfly {spec.name} differs at {a_.shape[0]} lanes "
+              f"({'broadcast' if tw_.dim() == 1 else 'per-lane'} twiddle)")
+        return got_, want_
+
     checks = {}
     ab = {}
+    bf_in = {}
     for spec in (fr.SPEC, fp.SPEC):
         n = 1 << 16
         m = spec.modulus
@@ -457,27 +481,56 @@ def main() -> int:
         checks[f"mont_mul_{spec.name}"] = max_abs_err(got, want)
         log(f"K1 mont_mul {spec.name}: {n} lanes bit-exact")
         # butterfly: per-lane twiddles (edge values in other lanes than a's
-        # and b's), then one broadcast twiddle, then Python ints
+        # and b's) and one broadcast twiddle, at 2^16 lanes and at 2^16 - 3
+        # (the grid-stride loop ends inside a step), each against Python
+        # ints on a few lanes; 2^20 below
         tv = random_fr_ints(rng, n - len(near), m) + near[3:] + near[:3]
         tw = spec.encode(tv, dev)
-        got, want = fk.butterfly(spec, a, b, tw), \
-            fk.butterfly_plain(spec, a, b, tw)
-        check(same(got, want), f"butterfly {spec.name} differs")
-        got1, want1 = fk.butterfly(spec, a, b, tw[-2]), \
-            fk.butterfly_plain(spec, a, b, tw[-2])
-        check(same(got1, want1), f"butterfly {spec.name} (broadcast) differs")
-        checks[f"butterfly_{spec.name}"] = max(max_abs_err(got, want),
-                                               max_abs_err(got1, want1))
-        lanes = [0, 1, n - 8, n - 5, n - 2, n - 1]
-        his, los = (spec.decode(t[lanes]) for t in got)
-        for i, h, lo in zip(lanes, his, los):
-            check((int(h), int(lo)) == ((av[i] + bv[i] * tv[i]) % m,
-                                        (av[i] - bv[i] * tv[i]) % m),
-                  f"butterfly {spec.name} lane {i} disagrees with ints")
-        if spec is fr.SPEC:
-            bf_in = (a, b, tw)
-        log(f"butterfly {spec.name}: {n} lanes bit-exact, per-lane and "
-            f"broadcast twiddle; lanes {lanes} equal Python ints")
+        err = 0
+        for nl in (n, n - 3):
+            for tws in (tw[:nl], tw[-2]):
+                got, want = butterfly_pair(spec, a[:nl], b[:nl], tws)
+                err = max(err, max_abs_err(got, want))
+                tvs = tv[:nl] if tws.dim() == 2 else [tv[-2]] * nl
+                lanes = [0, 1, nl - 8, nl - 5, nl - 2, nl - 1]
+                his, los = (spec.decode(t[lanes]) for t in got)
+                for i, h, lo in zip(lanes, his, los):
+                    check((int(h), int(lo)) ==
+                          ((av[i] + bv[i] * tvs[i]) % m,
+                           (av[i] - bv[i] * tvs[i]) % m),
+                          f"butterfly {spec.name} lane {i} of {nl} "
+                          "disagrees with ints")
+        checks[f"butterfly_{spec.name}"] = err
+        bf_in[spec.name] = (a, b, tw)
+        log(f"butterfly {spec.name}: {n} and {n - 3} lanes bit-exact, "
+            "per-lane and broadcast twiddle; six lanes of each equal "
+            "Python ints")
+    # the butterfly at 2^20 lanes, where bytes bound it: canonical words
+    # below both moduli (the top word < 2^28), made on the card
+    bf20 = {}
+    for spec in (fr.SPEC, fp.SPEC):
+        m, N = spec.modulus, spec.n_words
+        v = torch.randint(0, 1 << 32, (3, 1 << 20, N), dtype=torch.int64,
+                          generator=torch.Generator(dev).manual_seed(SEED),
+                          device=dev).to(torch.int32)
+        v[..., N - 1] &= 0x0FFFFFFF
+        a20, b20, t20 = v
+        bf20[spec.name] = (a20, b20, t20)
+        for tws in (t20, t20[7]):
+            got, want = butterfly_pair(spec, a20, b20, tws)
+            checks[f"butterfly_{spec.name}"] = max(
+                checks[f"butterfly_{spec.name}"], max_abs_err(got, want))
+            for i in (0, 777777, (1 << 20) - 1):
+                x_, y_, w_ = (int(spec.decode(t_)) for t_ in
+                              (a20[i], b20[i], tws if tws.dim() == 1
+                               else tws[i]))
+                check((int(spec.decode(got[0][i])),
+                       int(spec.decode(got[1][i])))
+                      == ((x_ + y_ * w_) % m, (x_ - y_ * w_) % m),
+                      f"butterfly {spec.name} 2^20 lane {i} disagrees "
+                      "with ints")
+        log(f"butterfly {spec.name}: 2^20 lanes bit-exact, per-lane and "
+            "broadcast twiddle; three lanes equal Python ints")
 
     fs12 = FFTSettings(12, dev)
     x12 = fr.from_int(random_fr_ints(rng, 1 << 12, r), dev)
@@ -488,19 +541,33 @@ def main() -> int:
     checks["fr_scale"] = max_abs_err(got, want)
     log("fr_scale: 4096 lanes (2^12 inverse-FFT exit) bit-exact")
 
-    # fr_signed_windows at part 2's 8192 scalars with the ends of the range
-    sw_ints = random_fr_ints(rng, 8192 - 6, r) + [0, 1, 8, r - 1, r - 2,
-                                                  int("8" * 63, 16) % r]
-    sw_in = fr.SPEC.words(sw_ints, dev)
-    got = fk.fr_signed_windows(sw_in)
-    want = fk.fr_signed_windows_plain(sw_in)
-    check(same(got, want), "fr_signed_windows differs")
-    checks["fr_signed_windows"] = max_abs_err(got, want)
-    for v, row in zip(sw_ints[-8:], got[-8:].tolist()):
-        check(sum(d << (4 * j) for j, d in enumerate(row)) == v,
-              "fr_signed_windows digits do not rebuild the scalar")
-    log("fr_signed_windows: 8192 scalars bit-exact (incl. 0, 1, r-1); the "
-        "digits rebuild the scalars")
+    # fr_signed_windows at part 2's 8192 scalars and at a block's 9 x 4096
+    # (nine blobs committed at once), with the ends of the range, on the
+    # Montgomery words that every path passes (reduced in the kernel);
+    # the digits rebuild the scalars
+    sw_edges = [0, 1, 8, r - 1, r - 2, int("8" * 63, 16) % r]
+    sw_in = {}
+    for nsw in (8192, 9 * 4096):
+        sw_ints = random_fr_ints(rng, nsw - len(sw_edges), r) + sw_edges
+        words = fr.from_int(sw_ints, dev)
+        sw_in[nsw] = words
+        got = fk.fr_signed_windows(words)
+        want = fk.fr_signed_windows_plain(words)
+        check(same(got, want), f"fr_signed_windows differs at {nsw} scalars")
+        checks["fr_signed_windows"] = max(
+            checks.get("fr_signed_windows", 0), max_abs_err(got, want))
+        for v, row in zip(sw_ints[-8:], got[-8:].tolist()):
+            check(sum(d << (4 * j) for j, d in enumerate(row)) == v,
+                  "fr_signed_windows digits do not rebuild the scalar")
+    fk.reset_launches()
+    check(same(fr.scalar_windows_signed(sw_in[8192]),
+               fk.fr_signed_windows_plain(sw_in[8192]))
+          and fk.LAUNCHES["fr_signed_windows"] == 1
+          and fk.LAUNCHES["mont_mul"] == 0,
+          "fr.scalar_windows_signed is not one launch of the recoding")
+    log("fr_signed_windows: 8192 and 36864 Montgomery scalars bit-exact "
+        "(incl. 0, 1, 8, r-1, r-2, 0x0888...8 mod r); the digits rebuild "
+        "the scalars; fr.scalar_windows_signed is one launch")
 
     for inverse in (False, True):
         roots12 = (fs12.reverse_roots_of_unity if inverse
@@ -992,6 +1059,8 @@ def main() -> int:
               f"{name} was not launched on the proof path")
     check(fk20_launches["g1_sum"] == 1 and fk20_launches["g1_add"] == 0,
           "the proof path must launch g1_sum once and g1_add never")
+    check(fk20_launches["mont_mul"] == 0,
+          "the proof path launched K1 (mont_mul)")
     check(proofs.x.shape == (n2 // l, fp.N_WORDS),
           f"proofs have shape {tuple(proofs.x.shape)}")
 
@@ -1060,7 +1129,7 @@ def main() -> int:
     for name in PATH_KERNELS + EXTENSION_KERNELS:
         check(launches[name] > 0,
               f"{name} was not launched on the producer path")
-    for name in ("g1_double",) + STAGE_DAS_KERNELS:
+    for name in ("g1_double", "mont_mul") + STAGE_DAS_KERNELS:
         check(launches[name] == 0, f"the producer path launched {name}")
     check(ext.shape == (n2, fr.N_WORDS) and same(ext[0::2], evens),
           "the extension does not keep the evens")
@@ -1373,7 +1442,10 @@ def main() -> int:
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
                products, err, reps=5, plain_reps=1, chain=None, lat=None,
-               per_call=1):
+               per_call=1, shape=None):
+        """A kernel's row of the kernels line, timed at the shape given;
+        a second shape of a kernel already recorded goes into its row's
+        `shapes`."""
         # the kernel against its plain version at the timed shape, the
         # plain version first: the Fr stages work in place
         ref = plain_fn()
@@ -1391,27 +1463,34 @@ def main() -> int:
         pms = timed(plain_fn, plain_reps)
         b, by = bound_ms(nbytes, products)
         by_path = {p: c[name] for p, c in path_launches.items()}
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
-            "bound_by": by, "library_ms": None,
-            "latency_ms": None if chain is None else chain * (lat or lat_ms)})
-        timing[name] = {"device_ms": dev_ms, "traced_launches": caught,
-                        "reps": reps, "launches_a_call": per_call,
-                        "call_ms": [call_ms, call2_ms],
-                        "chain_products": chain}
-        log(f"[{card}] {name}: {ms:.4f} ms on the device ({caught} of "
-            f"{reps * per_call} launches traced), {call_ms:.4f} then "
-            f"{call2_ms:.4f} ms "
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
+               "bound_by": by}
+        first = next((k for k in kernels if k["name"] == name), None)
+        if first is None:
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **row, "library_ms": None,
+                "latency_ms": None if chain is None else
+                chain * (lat or lat_ms), "shape": shape})
+        else:
+            first.setdefault("shapes", []).append({"shape": shape, **row,
+                                                   "call_ms": call2_ms})
+        timing[name if first is None else f"{name} {shape}"] = {
+            "device_ms": dev_ms, "traced_launches": caught, "reps": reps,
+            "launches_a_call": per_call, "call_ms": [call_ms, call2_ms],
+            "chain_products": chain}
+        log(f"[{card}] {name}{'' if shape is None else f' ({shape})'}: "
+            f"{ms:.4f} ms on the device ({caught} of {reps * per_call} "
+            f"launches traced), {call_ms:.4f} then {call2_ms:.4f} ms "
             f"a call (plain {pms:.3f} ms, bound {b:.3g} ms by {by})")
 
     timing = {}
 
     FR = fr.SPEC
-    # K1 at its widest call on the paths: fr.from_mont of the Toeplitz
-    # scalars (64 x 128 Fr lanes) against the broadcast integer 1
+    # K1 at 8192 Fr lanes against the broadcast integer 1 (fr.from_mont
+    # at Toeplitz part 2's shape; no path runs it there since the
+    # recoding reduces its words itself)
     a = fr.from_int(random_fr_ints(rng, 64 * 128, r), dev)
     one = FR.words([1], dev)[0]
     nl = a.shape[0]
@@ -1717,26 +1796,34 @@ def main() -> int:
                                          11, 2),
            2048 * (4 * 32 + 32), 2048 * (2 * 8 * 8 + 8),
            checks["fr_dif_stage"])
-    # fr_signed_windows at part 2's 8192 scalars: 32 bytes read and 256
-    # written a scalar, no products. It replaces plain tensor code of
-    # kzg_tpu, not a Pallas kernel
-    record("fr_signed_windows", "signed_windows_kernel",
-           "kzg_tpu_torch/csrc/fr_kernels.cu",
-           "kzg_tpu/field/fr.py:109-130",
-           lambda: fk.fr_signed_windows(sw_in),
-           lambda: fk.fr_signed_windows_plain(sw_in),
-           sw_in.shape[0] * (32 + 256), 0, checks["fr_signed_windows"])
-    # butterfly, on no path, at phase 2's 2^16 Fr lanes with per-lane
-    # twiddles: a, b, tw read, hi and lo written, one product a lane
-    ba, bb, bt = bf_in
-    nbl = ba.shape[0]
-    record("butterfly", "butterfly_kernel", "kzg_tpu_torch/csrc/fr_kernels.cu",
-           "kzg_tpu/field/pallas_kernels.py:344",
-           lambda: fk.butterfly(FR, ba, bb, bt),
-           lambda: fk.butterfly_plain(FR, ba, bb, bt),
-           5 * 32 * nbl, nbl * (2 * 8 * 8 + 8),
-           max(checks["butterfly_Fr"], checks["butterfly_Fp"]))
-
+    # fr_signed_windows at part 2's 8192 scalars (the path's Montgomery
+    # words) and at 9 x 4096: 32 bytes read and 256 written a scalar; the
+    # REDC does 8 x 8 word products and 8 digit products a scalar. It
+    # replaces plain tensor code of kzg_tpu, not a Pallas kernel
+    for nsw in (8192, 9 * 4096):
+        words = sw_in[nsw]
+        record("fr_signed_windows", "signed_windows_kernel",
+               "kzg_tpu_torch/csrc/fr_kernels.cu",
+               "kzg_tpu/field/fr.py:109-130",
+               lambda w=words: fk.fr_signed_windows(w),
+               lambda w=words: fk.fr_signed_windows_plain(w),
+               nsw * (32 + 256), nsw * 72, checks["fr_signed_windows"],
+               shape=f"{nsw} Montgomery scalars")
+    # butterfly, on no path: at phase 2's 2^16 lanes, then at 2^20, where
+    # bytes bound it, Fr and Fp; per-lane twiddles: a, b, tw read,
+    # hi and lo written, one product a lane
+    for src in (bf_in, bf20):
+        for fname, (ba, bb, bt) in src.items():
+            spec = fr.SPEC if fname == "Fr" else fp.SPEC
+            N, nbl = spec.n_words, ba.shape[0]
+            record("butterfly", "butterfly_stream_kernel",
+                   "kzg_tpu_torch/csrc/fr_kernels.cu",
+                   "kzg_tpu/field/pallas_kernels.py:344",
+                   functools.partial(fk.butterfly, spec, ba, bb, bt),
+                   functools.partial(fk.butterfly_plain, spec, ba, bb, bt),
+                   5 * 4 * N * nbl, nbl * (2 * N * N + N),
+                   max(checks["butterfly_Fr"], checks["butterfly_Fp"]),
+                   shape=f"{fname}, {nbl} lanes")
 
     # ---- the routes of K1 and K2: old and new in turns, then each kernel
     # The Fr product's dependent latency: one lane's Fermat ladder is one

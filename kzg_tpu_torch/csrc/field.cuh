@@ -226,6 +226,33 @@ __device__ __forceinline__ void mul(uint32_t r[N], const uint32_t a[N],
   cond_sub<N>(r, t, ptx::addc(0, 0));
 }
 
+// REDC(t) = t R^-1 mod m for t < R, canonical: the product by the
+// integer 1 without the N rows of a * b_i. N rows of t = (t + q m) / 2^32
+// with q = t[0] n0, then one conditional subtract. t stays below R
+// (t + q m < R + 2^32 m < 2^32 R), so each row's sum fits N + 1 words and
+// the shift drops the zero low word.
+template <int N>
+__device__ __forceinline__ void from_mont(uint32_t t[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const uint32_t q = t[0] * Field<N>::n0;
+    uint32_t u[N + 1];
+    u[0] = ptx::mad_lo_cc(q, Field<N>::m(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < N; j++)
+      u[j] = ptx::madc_lo_cc(q, Field<N>::m(j), t[j]);
+    u[N] = ptx::addc(0, 0);
+    u[1] = ptx::mad_hi_cc(q, Field<N>::m(0), u[1]);
+#pragma unroll
+    for (int j = 1; j < N - 1; j++)
+      u[j + 1] = ptx::madc_hi_cc(q, Field<N>::m(j), u[j + 1]);
+    u[N] = ptx::madc_hi(q, Field<N>::m(N - 1), u[N]);
+#pragma unroll
+    for (int j = 0; j < N; j++) t[j] = u[j + 1];
+  }
+  cond_sub<N>(t, t, 0);
+}
+
 template <int N>
 __device__ __forceinline__ bool is_zero(const uint32_t a[N]) {
   uint32_t acc = 0;

@@ -18,19 +18,21 @@
 // one product per butterfly.
 // butterfly replaces ::_butterfly_fn (butterfly_pallas): the canonical
 // fused butterfly (a + b*tw, a - b*tw) over separate a, b and tw arrays,
-// for Fr or Fp, tw one per lane or one broadcast element. No path runs it
-// (in the JAX package too, only a test does); the FFT stays on K2.
+// for Fr or Fp, tw one per lane or one broadcast element, as a streaming
+// kernel bound by bytes (butterfly_stream_kernel). No path runs it (in
+// the JAX package too, only a test does).
 // fr_signed_windows is the digit recoding in front of the G1 scalar
 // products (fr.scalar_windows_signed, plain tensor code in
-// kzg_tpu/field/fr.py:109-130): canonical Fr words -> 64 signed 4-bit
-// windows, a + 0x0888...8 (63 eights) then each nibble less 8 (the top one
-// as it is). One thread a scalar runs the 8-word carry chain; its plain
-// version took some 40 tensor operations a call.
+// kzg_tpu/field/fr.py:109-130): Montgomery Fr words -> 64 signed 4-bit
+// windows; the reduction (REDC by 1, kzg::from_mont) runs in the same
+// launch, then a + 0x0888...8 (63 eights) and each nibble less 8 (the top
+// one as it is). Four threads a scalar; bound by the 256 bytes of digits
+// a scalar written.
 //
 // Bound on this card: a canonical product moves 3 x 4N bytes (a, b, out)
 // and does 2N^2 + N 32x32->64 multiply-adds (300 for Fp, 136 for Fr).
 // Against the published rates (3.35 TB/s; 67 TFLOP/s float32, taken as
-// the rate of 32-bit multiply-adds) both kernels are bound by bytes, and
+// the rate of 32-bit multiply-adds) K1 and K2 are bound by bytes, and
 // the two bounds are within a few times of each other, since the card
 // issues integer multiplies at no more than half its float32 rate. At the
 // main path's widths (at most 20480 lanes) a launch is bound by latency
@@ -58,48 +60,115 @@ __global__ void __launch_bounds__(kThreads)
   kzg::store<N>(out + (size_t)i * N, x);
 }
 
-// The 64 signed windows of each canonical Fr scalar, LSB first.
+// Threads a scalar in fr_signed_windows. A warp runs the reduction once
+// for all its lanes, so its cost goes with the warps, i.e. with the
+// threads a scalar; two threads a scalar still store whole 32-byte
+// sectors (eight 16-byte stores a thread). Four and eight were slower.
+constexpr int kWinThreads = 2;
+
+// The 64 signed windows of each Fr scalar in Montgomery form, LSB first.
+// The threads of a scalar each read its 32 bytes (one broadcast from L1),
+// run the reduction (REDC by 1) and the bias add's carry chain over all
+// eight words (the same work on every thread, no shuffle), and thread k
+// stores the 16-byte parts k, k + kWinThreads, ... (4 digits, one 16-bit
+// half of a biased word, each): a warp's store instruction writes
+// 16 kWinThreads contiguous bytes of each of its 32 / kWinThreads
+// scalars, whole sectors, and the warp writes its scalars' digits as one
+// run.
 __global__ void __launch_bounds__(kThreads)
     signed_windows_kernel(int32_t* __restrict__ out,
                           const int32_t* __restrict__ a, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int4* o = (int4*)(out + (size_t)i * 64);
-  uint32_t carry = 0;
+  const size_t g = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t i = g / kWinThreads;
+  const int k = (int)(g % kWinThreads);
+  if (i >= (size_t)n) return;
+  const uint4* src = (const uint4*)a + i * 2;
+  const uint4 lo4 = __ldg(src), hi4 = __ldg(src + 1);
+  uint32_t t[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+  kzg::from_mont<8>(t);
+  // + 0x0888...8 (63 eights): every digit but the top one gains 8
+  uint32_t s[8];
+  s[0] = kzg::ptx::add_cc(t[0], 0x88888888u);
 #pragma unroll
-  for (int k = 0; k < 8; k++) {
-    const uint64_t s = (uint64_t)(uint32_t)a[(size_t)i * 8 + k] +
-                       (k < 7 ? 0x88888888u : 0x08888888u) + carry;
-    const uint32_t w = (uint32_t)s;
-    carry = (uint32_t)(s >> 32);
-    int d[8];
+  for (int j = 1; j < 7; j++) s[j] = kzg::ptx::addc_cc(t[j], 0x88888888u);
+  s[7] = kzg::ptx::addc(t[7], 0x08888888u);
+  int4* o = (int4*)out + i * 16;
 #pragma unroll
-    for (int q = 0; q < 8; q++)
-      d[q] = (int)((w >> (4 * q)) & 0xFu) - (8 * k + q < 63 ? 8 : 0);
-    o[2 * k] = make_int4(d[0], d[1], d[2], d[3]);
-    o[2 * k + 1] = make_int4(d[4], d[5], d[6], d[7]);
+  for (int p = 0; p < 16 / kWinThreads; p++) {
+    const int part = k + kWinThreads * p;
+    // s[part / 2] by selects: an index into s not known at compile time
+    // would put s in local memory
+    uint32_t w = s[0];
+#pragma unroll
+    for (int j = 1; j < 8; j++)
+      if (part / 2 == j) w = s[j];
+    const uint32_t h = w >> (16 * (part & 1));
+    o[part] = make_int4((int)(h & 0xFu) - 8, (int)((h >> 4) & 0xFu) - 8,
+                        (int)((h >> 8) & 0xFu) - 8,
+                        (int)((h >> 12) & 0xFu) - (part == 15 ? 0 : 8));
   }
 }
 
+// A lane of N words as N / 4 16-byte loads through the read-only path,
+// and its streaming stores (the butterfly's outputs are not read again).
+template <int N>
+__device__ __forceinline__ void load_lane(uint32_t r[N],
+                                          const int32_t* __restrict__ p,
+                                          size_t i) {
+  const uint4* v = (const uint4*)p + i * (N / 4);
+#pragma unroll
+  for (int q = 0; q < N / 4; q++) {
+    const uint4 u = __ldg(v + q);
+    r[4 * q] = u.x;
+    r[4 * q + 1] = u.y;
+    r[4 * q + 2] = u.z;
+    r[4 * q + 3] = u.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_lane(int32_t* __restrict__ p, size_t i,
+                                           const uint32_t a[N]) {
+  uint4* v = (uint4*)p + i * (N / 4);
+#pragma unroll
+  for (int q = 0; q < N / 4; q++)
+    __stcs(v + q, make_uint4(a[4 * q], a[4 * q + 1], a[4 * q + 2],
+                             a[4 * q + 3]));
+}
+
 // hi = a + b*tw, lo = a - b*tw per lane; tw is one element when tw_bcast.
-// Bound as K1: it moves 5 x 4N bytes (a, b, tw, hi, lo) for one product.
+// It moves 5 x 4N bytes a lane (a, b, tw, hi, lo) for one product, so
+// bytes bound it at any width (2^20 Fr lanes: 168 MB, 0.050 ms at 3.35
+// TB/s; the products 0.0044 ms at the float32 rate). A grid of the
+// blocks the SMs hold at once walks the lanes, one a thread, neighbouring
+// threads on neighbouring lanes; each lane's 16-byte loads are all issued
+// before its product; a broadcast twiddle is read once a thread. Two
+// lanes a thread (more bytes in flight a thread) and a TMA form (tiles
+// staged in shared memory by bulk copies on an mbarrier) were both slower
+// or no faster at 2^16 and 2^20, Fr and Fp: with one lane a thread more
+// warps are resident to overlap the Fp products with the loads.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
-    butterfly_kernel(int32_t* __restrict__ hi, int32_t* __restrict__ lo,
-                     const int32_t* __restrict__ a,
-                     const int32_t* __restrict__ b,
-                     const int32_t* __restrict__ tw, int n, int tw_bcast) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[N], y[N], w[N], s[N];
-  kzg::load<N>(x, a + (size_t)i * N);
-  kzg::load<N>(y, b + (size_t)i * N);
-  kzg::load<N>(w, tw + (tw_bcast ? 0 : (size_t)i * N));
-  kzg::mul<N>(y, y, w);
-  kzg::add<N>(s, x, y);
-  kzg::sub<N>(x, x, y);
-  kzg::store<N>(hi + (size_t)i * N, s);
-  kzg::store<N>(lo + (size_t)i * N, x);
+    butterfly_stream_kernel(int32_t* __restrict__ hi,
+                            int32_t* __restrict__ lo,
+                            const int32_t* __restrict__ a,
+                            const int32_t* __restrict__ b,
+                            const int32_t* __restrict__ tw, int n,
+                            int tw_bcast) {
+  uint32_t w[N];
+  if (tw_bcast) load_lane<N>(w, tw, 0);
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+       i < (size_t)n; i += (size_t)gridDim.x * kThreads) {
+    uint32_t x[N], y[N], s[N];
+    load_lane<N>(x, a, i);
+    load_lane<N>(y, b, i);
+    if (!tw_bcast) load_lane<N>(w, tw, i);
+    kzg::mul<N>(y, y, w);
+    kzg::add<N>(s, x, y);
+    kzg::sub<N>(x, x, y);
+    store_lane<N>(hi, i, s);
+    store_lane<N>(lo, i, x);
+  }
 }
 
 // Thread t of a stage of width m = 2^(log_half+1) over `batch` rows of
@@ -185,16 +254,31 @@ extern "C" int kzg_mont_mul(int n_words, void* out, const void* a,
   return (int)cudaGetLastError();
 }
 
+// A grid for a kernel that walks `lanes` lanes, kThreads a block in one
+// step: no more blocks than the SMs hold at once.
+template <typename Kernel>
+int stream_grid(Kernel kernel, int lanes) {
+  int dev = 0, sms = 0, resident = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads,
+                                                0);
+  const int need = (lanes + kThreads - 1) / kThreads;
+  return need < sms * resident ? need : sms * resident;
+}
+
 extern "C" int kzg_butterfly(int n_words, void* hi, void* lo, const void* a,
                              const void* b, const void* tw, int n,
                              int tw_bcast, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_words == 8) {
-    butterfly_kernel<8><<<blocks(n), kThreads, 0, s>>>(
+    const int g = stream_grid(butterfly_stream_kernel<8>, n);
+    butterfly_stream_kernel<8><<<g, kThreads, 0, s>>>(
         (int32_t*)hi, (int32_t*)lo, (const int32_t*)a, (const int32_t*)b,
         (const int32_t*)tw, n, tw_bcast);
   } else if (n_words == 12) {
-    butterfly_kernel<12><<<blocks(n), kThreads, 0, s>>>(
+    const int g = stream_grid(butterfly_stream_kernel<12>, n);
+    butterfly_stream_kernel<12><<<g, kThreads, 0, s>>>(
         (int32_t*)hi, (int32_t*)lo, (const int32_t*)a, (const int32_t*)b,
         (const int32_t*)tw, n, tw_bcast);
   } else {
@@ -223,7 +307,8 @@ extern "C" int kzg_fr_dif_stage(void* x, const void* roots, int log_n,
 
 extern "C" int kzg_fr_signed_windows(void* out, const void* a, int n,
                                      void* stream) {
-  signed_windows_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const int grid = (int)(((size_t)n * kWinThreads + kThreads - 1) / kThreads);
+  signed_windows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)a, n);
   return (int)cudaGetLastError();
 }

@@ -12,17 +12,16 @@ import numpy as np
 import torch
 
 from . import limbs
-from .constants import FR_MODULUS
 from .kernels import (
+    FR,
     fr_add_sub,
     fr_batch_inv,
     fr_pow,
     fr_signed_windows,
     mont_mul,
 )
-from .limbs import FieldSpec
 
-SPEC = FieldSpec(name="Fr", modulus=FR_MODULUS, n_words=8)
+SPEC = FR
 N_WORDS = SPEC.n_words
 
 
@@ -83,9 +82,9 @@ def from_mont(a) -> torch.Tensor:
 def scalar_windows_signed(a_mont) -> torch.Tensor:
     """Signed 4-bit windows of Montgomery-form scalars: int32 (..., 64)
     LSB-first digits s with sum_j s_j 16^j == a, s_j in [-8, 7] for
-    j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130): from_mont on
-    K1, then the recoding kernel fr_signed_windows."""
-    return fr_signed_windows(from_mont(a_mont))
+    j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130): one launch
+    of fr_signed_windows, which reduces the words itself."""
+    return fr_signed_windows(a_mont)
 
 
 # ---- host conversions ----

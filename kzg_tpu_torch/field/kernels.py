@@ -21,6 +21,7 @@ import torch
 from .. import build
 from ..ntt.bitrev import brp_permute
 from . import limbs
+from .constants import FR_MODULUS
 from .limbs import FieldSpec
 
 LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
@@ -30,6 +31,7 @@ LAUNCHES = {"mont_mul": 0, "fr_scale": 0, "fr_butterfly_stage": 0,
             "fr_zero_poly_leaves": 0}
 
 FR_WORDS = 8
+FR = FieldSpec(name="Fr", modulus=FR_MODULUS, n_words=FR_WORDS)
 SIGNED_WINDOWS = 64
 # bias for signed-window recoding: 63 low nibbles of 8 (top nibble 0)
 _SIGNED_WINDOW_BIAS = int("8" * 63, 16)
@@ -121,7 +123,8 @@ def butterfly(spec: FieldSpec, a, b, tw):
     broadcast against the batch (replaces
     kzg_tpu/field/pallas_kernels.py::_butterfly_fn). On the card a and b
     are materialised at the broadcast shape, and tw too unless it is one
-    element (N,)."""
+    element (N,); the kernel reads and writes 16 bytes at a time, so every
+    operand must start on a 16-byte boundary."""
     if a.device.type == "cpu":
         return butterfly_plain(spec, a, b, tw)
     N = spec.n_words
@@ -134,6 +137,8 @@ def butterfly(spec: FieldSpec, a, b, tw):
         check_words(t, N, "butterfly")
         if t.device != aa.device:
             raise ValueError("butterfly: operands on different devices")
+        if t.data_ptr() % 16:
+            raise ValueError("butterfly: operand not 16-byte aligned")
     hi, lo = torch.empty_like(aa), torch.empty_like(aa)
     n = aa.numel() // N
     if n:
@@ -258,7 +263,8 @@ def fr_dif_stage(spec: FieldSpec, x, roots, log_half: int,
     return x
 
 
-def fr_signed_windows_plain(canon) -> torch.Tensor:
+def fr_signed_windows_plain(mont) -> torch.Tensor:
+    canon = limbs.mont_mul_plain(FR, mont, FR.words([1], mont.device))
     canon = limbs.words_to_limbs(canon)                  # (..., 16)
     bias = torch.tensor(limbs.int_to_limbs(_SIGNED_WINDOW_BIAS, 16),
                         dtype=torch.int64, device=canon.device)
@@ -270,26 +276,30 @@ def fr_signed_windows_plain(canon) -> torch.Tensor:
     return wins.to(torch.int32)
 
 
-def fr_signed_windows(canon) -> torch.Tensor:
-    """Signed 4-bit windows of canonical Fr words (..., 8): int32
-    (..., 64) LSB-first digits s with sum_j s_j 16^j == a, s_j in [-8, 7]
-    for j < 63 and s_63 in [0, 8]. Adding 0x0888...8 (63 eights) shifts
-    every low digit by +8 with the carries folded in; a < 2^255 keeps the
-    biased sum below 2^256. One launch (the recoding in front of the G1
-    scalar products; plain tensor code in kzg_tpu/field/fr.py:109-130)."""
-    if canon.device.type == "cpu":
-        return fr_signed_windows_plain(canon)
-    canon = canon.contiguous()
-    check_words(canon, FR_WORDS, "fr_signed_windows")
-    out = torch.empty(canon.shape[:-1] + (SIGNED_WINDOWS,),
-                      dtype=torch.int32, device=canon.device)
-    n = canon.numel() // FR_WORDS
+def fr_signed_windows(mont) -> torch.Tensor:
+    """Signed 4-bit windows of Fr words in Montgomery form (..., 8): int32
+    (..., 64) LSB-first digits s with sum_j s_j 16^j == a (the canonical
+    value), s_j in [-8, 7] for j < 63 and s_63 in [0, 8]. The kernel
+    first reduces the words (REDC by 1); adding 0x0888...8 (63 eights)
+    then shifts every low digit by +8 with the carries folded in, and
+    a < 2^255 keeps the biased sum below 2^256. One launch (the recoding
+    in front of the G1 scalar products; plain tensor code in
+    kzg_tpu/field/fr.py:109-130)."""
+    if mont.device.type == "cpu":
+        return fr_signed_windows_plain(mont)
+    mont = mont.contiguous()
+    check_words(mont, FR_WORDS, "fr_signed_windows")
+    if mont.data_ptr() % 16:
+        raise ValueError("fr_signed_windows: words not 16-byte aligned")
+    out = torch.empty(mont.shape[:-1] + (SIGNED_WINDOWS,),
+                      dtype=torch.int32, device=mont.device)
+    n = mont.numel() // FR_WORDS
     if n:
         lib = build.library("fr_kernels")
         LAUNCHES["fr_signed_windows"] += 1
         build.check(lib.kzg_fr_signed_windows(out.data_ptr(),
-                                              canon.data_ptr(), n,
-                                              stream_of(canon)),
+                                              mont.data_ptr(), n,
+                                              stream_of(mont)),
                     "fr_signed_windows")
     return out
 

@@ -13,15 +13,17 @@ one-lane `fr_pow`, `fr_batch_inv` at 8192 lanes,
 `fr_zero_poly_leaves` at 64 leaves and, where the tree has it,
 `fr_das_block` (the DAS extension, interleaved) at 1 and 9 blobs of
 4096, its call (CUDA events) and each launch's device time (a
-torch.profiler trace). To compare two versions
-of csrc/field.cuh, make a second tree that differs only in that header
-and run the two in turns (old, new, new, old) on one card:
+torch.profiler trace), and the recoding `fr.scalar_windows_signed` (at
+8192 and 36,864 Montgomery scalars) and `butterfly` (2^16 and 2^20
+lanes, Fr and Fp), each a call (events) and its device time and device
+operations (trace). To compare two versions of a kernel source, make a
+second tree that differs in it and run the two in turns (old, new, new,
+old) on one card, e.g. this tree's kernels against those of the commit
+it was made on, PARENT:
 
-    git archive HEAD kzg_tpu_torch | tar -x -C build/field_old
-    git show <commit>:kzg_tpu_torch/csrc/field.cuh \\
-        > build/field_old/kzg_tpu_torch/csrc/field.cuh
-    for r in build/field_old . . build/field_old; do
-        python3 kzg_tpu_torch/tools/field_turns.py --root $r
+    git archive PARENT kzg_tpu_torch | tar -x -C build/turns_old
+    for r in build/turns_old . . build/turns_old; do
+        python3 kzg_tpu_torch/tools/field_turns.py --root $r --routes
     done
 
 Each tree builds its own kernels under DIR/build/kernels.
@@ -57,10 +59,9 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, match: str, reps: int) -> tuple:
-    """(mean device ms of one launch of the kernel whose name holds
-    `match`, launches caught) over `reps` calls of fn, from a
-    torch.profiler trace, which may miss some launches."""
+def device_spans(fn, reps: int) -> list:
+    """(name, device ms) of every device activity of `reps` calls of fn,
+    from a torch.profiler trace, which may miss some launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -72,9 +73,60 @@ def device_ms(fn, match: str, reps: int) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    mine = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == DeviceType.CUDA and match in e.name]
-    return (sum(mine) / 1e3 / len(mine), len(mine)) if mine else (None, 0)
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, match: str, reps: int) -> tuple:
+    """(mean device ms of one launch of the kernel whose name holds
+    `match`, launches caught) over `reps` calls of fn."""
+    mine = [ms for name, ms in device_spans(fn, reps) if match in name]
+    return (sum(mine) / len(mine), len(mine)) if mine else (None, 0)
+
+
+def call_device_ms(fn, reps: int) -> dict:
+    """A call's device time (all its device activity, summed) and its
+    device operations, a mean over the calls, from a trace."""
+    spans = device_spans(fn, reps)
+    return {"device_ms": sum(ms for _, ms in spans) / reps,
+            "device_ops": len(spans) / reps,
+            "names": sorted({name[:60] for name, _ in spans})}
+
+
+def timed(fn, reps: int) -> dict:
+    """A call's time (CUDA events), then its device time (trace)."""
+    return {"call_ms": cuda_ms(fn, reps), **call_device_ms(fn, reps)}
+
+
+def recoding_and_butterfly(fr, fk, words, dev) -> dict:
+    """The recoding in front of the G1 products (`fr.scalar_windows_signed`
+    on Montgomery words: K1's from_mont and the recoding in trees before
+    the one-launch kernel, one launch after) at 8192 scalars (Toeplitz
+    part 2) and 9 x 4096 (a block's nine blobs committed at once), and
+    `butterfly` at 2^16 and 2^20 lanes, Fr and Fp, per-lane twiddles:
+    each a call (CUDA events) and its device time and operations
+    (trace)."""
+    import torch
+
+    from kzg_tpu_torch.field import fp
+
+    out = {}
+    for n in (8192, 9 * 4096):
+        w = words[:n].contiguous()
+        out[f"windows_mont_{n}"] = timed(
+            lambda w=w: fr.scalar_windows_signed(w), REPS)
+    for spec in (fr.SPEC, fp.SPEC):
+        N = spec.n_words
+        for log_n in (16, LOG_N):
+            n = 1 << log_n
+            # canonical words below the modulus (the top word < 2^28)
+            v = np.random.default_rng(log_n).integers(
+                0, 1 << 31, size=(3, n, N), dtype=np.int64)
+            v[..., N - 1] &= 0x0FFFFFFF
+            a, b, tw = torch.from_numpy(v.astype(np.int32)).to(dev)
+            key = f"butterfly_{spec.name}_{log_n}"
+            out[key] = timed(lambda: fk.butterfly(spec, a, b, tw), REPS)
+    return out
 
 
 def main() -> int:
@@ -162,6 +214,7 @@ def main() -> int:
                                                     8192, True))
                 out[f"das_{b}_call_ms"] = cuda_ms(fn, REPS)
                 out[f"das_{b}_launch_ms"] = device_ms(fn, "das_block", REPS)
+        out.update(recoding_and_butterfly(fr, fk, x.reshape(n, 8), dev))
     out["registers"] = regs
     print(json.dumps(out))
     return 0

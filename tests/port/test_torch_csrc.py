@@ -53,11 +53,30 @@ def test_field_generic_entry_points(fn, argc):
     body = text[text.index(f'extern "C" int {fn}('):]
     body = body[:body.index("\n}\n")]
     kernel = {"kzg_mont_mul": "mont_mul_kernel",
-              "kzg_butterfly": "butterfly_kernel"}[fn]
+              "kzg_butterfly": "butterfly_stream_kernel"}[fn]
     for n in (fp.SPEC.n_words, fr.SPEC.n_words):
         assert f"n_words == {n}" in body
         assert f"{kernel}<{n}><<<" in body
     assert "cudaErrorInvalidValue" in body
+
+
+def test_signed_windows_entry_point():
+    """fr_signed_windows takes Montgomery words, reduces them in the
+    kernel (field.cuh's from_mont) and launches one kernel; the streaming
+    butterfly sizes its grid to the SMs."""
+    fn = "kzg_fr_signed_windows"
+    assert len(build.SIGNATURES["fr_kernels"][fn]) == 4
+    text = source("fr_kernels.cu")
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       text).group(1).split(",")
+    assert [p.split()[-1] for p in params] == ["out", "a", "n", "stream"]
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    assert "signed_windows_kernel<<<" in body
+    assert "kzg::from_mont<8>(t);" in text
+    assert "void from_mont(uint32_t t[N])" in source("field.cuh")
+    assert "butterfly_stream_kernel(int32_t* __restrict__ hi" in text
+    assert "stream_grid(butterfly_stream_kernel<8>, n)" in text
 
 
 def test_entry_points_match_bindings():

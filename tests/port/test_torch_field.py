@@ -1,7 +1,8 @@
 """Fr/Fp arithmetic of the port against the JAX package, and the kernel
-wrappers of field/kernels.py (K1 mont_mul, fr_scale, K2, butterfly) on the
-CPU. The interpreted _butterfly_fn and the JAX batch inversion, slow to
-compile, are recorded (port_helpers.py)."""
+wrappers of field/kernels.py (K1 mont_mul, fr_scale, K2, butterfly, the
+recoding fr_signed_windows of Montgomery words) on the CPU. The
+interpreted _butterfly_fn and the JAX batch inversion, slow to compile,
+are recorded (port_helpers.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,15 +80,44 @@ def test_fp_inv_sqr_match_reference():
 
 
 def test_signed_windows_edge_scalars():
-    """The recoding of canonical words at the ends of Fr's range: the
+    """The recoding of Montgomery words at the ends of Fr's range: the
     digits rebuild the scalar, and each lies in its window's range."""
     r = fr.SPEC.modulus
     vals = [0, 1, 7, 8, 9, r - 1, r - 2, (1 << 252) - 1, 0x888 * 16 ** 60,
             int("8" * 63, 16) % r]
-    got = kernels.fr_signed_windows(fr.SPEC.words(vals, CPU))
+    got = kernels.fr_signed_windows(fr.from_int(vals, CPU))
     for v, row in zip(vals, got.tolist()):
         assert sum(d << (4 * j) for j, d in enumerate(row)) == v
         assert all(-8 <= d <= 7 for d in row[:63]) and 0 <= row[63] <= 8
+
+
+def test_signed_windows_mont_edge_scalars_match_reference():
+    """The plain recoding of Montgomery words (the kernel reduces them in
+    the same launch) on the edge scalars above, against the live kzg_tpu
+    recoding; the digits rebuild the scalar."""
+    r = fr.SPEC.modulus
+    vals = [0, 1, 7, 8, 9, r - 1, r - 2, (1 << 252) - 1, 0x888 * 16 ** 60,
+            int("8" * 63, 16) % r]
+    mont = fr.from_int(vals, CPU)
+    got = kernels.fr_signed_windows_plain(mont)
+    want = np.asarray(jfr.scalar_windows_signed(jfr.from_int(vals)))
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(kernels.fr_signed_windows(mont), got)
+    for v, row in zip(vals, got.tolist()):
+        assert sum(d << (4 * j) for j, d in enumerate(row)) == v
+
+
+def test_scalar_windows_signed_is_one_recoding():
+    """fr.scalar_windows_signed is fr_signed_windows on the Montgomery
+    words (one launch on the card), batch dims kept; the digits rebuild
+    the scalars."""
+    (a, _), _, (av, _) = operands("Fr", seed=6)
+    a = a[:24].reshape(2, 12, 8)
+    got = fr.scalar_windows_signed(a)
+    assert torch.equal(got, kernels.fr_signed_windows(a))
+    assert got.shape == (2, 12, 64)
+    for v, row in zip(av[:24], got.reshape(24, 64).tolist()):
+        assert sum(d << (4 * j) for j, d in enumerate(row)) == v
 
 
 def test_scalar_windows_signed_matches_reference():
@@ -214,6 +244,29 @@ def test_butterfly_matches_pallas_kernel(name):
     t = tv[5]
     assert list(mod.to_int(hi1)) == [(x + y * t) % m for x, y in zip(av, bv)]
     assert list(mod.to_int(lo1)) == [(x - y * t) % m for x, y in zip(av, bv)]
+
+
+@pytest.mark.parametrize("name", ["Fr", "Fp"])
+def test_butterfly_plain_with_tail_matches_ints(name):
+    """The plain butterfly at 2^7 - 3 lanes, a count that is not a
+    multiple of a block (the card's tail is held by chip_smoke.py), with
+    the field's edge values, per-lane and broadcast twiddle, against
+    Python ints."""
+    _, mod = FIELDS[name]
+    m = mod.SPEC.modulus
+    rng = np.random.default_rng(17)
+    n = (1 << 7) - 3
+    edges = edge_ints(m)
+    av, bv, tv = (random_ints(rng, n - len(edges), m) + edges[k:] + edges[:k]
+                  for k in range(3))
+    a, b, tw = (mod.from_int(v, CPU) for v in (av, bv, tv))
+    for t, tws in ((tw, tv), (tw[-1], [tv[-1]] * n)):
+        hi, lo = kernels.butterfly(mod.SPEC, a, b, t)
+        assert hi.shape == lo.shape == (n, mod.SPEC.n_words)
+        assert list(mod.to_int(hi)) == [(x + y * w) % m
+                                        for x, y, w in zip(av, bv, tws)]
+        assert list(mod.to_int(lo)) == [(x - y * w) % m
+                                        for x, y, w in zip(av, bv, tws)]
 
 
 @pytest.mark.parametrize("e", [0, 1, 2, 12345, fr.SPEC.modulus - 2])
