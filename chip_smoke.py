@@ -80,7 +80,22 @@ Phases; any failure raises and the script exits non-zero with no result:
      cell's FK20 proof, and FK20SingleSettings on an 8192-point CRS with
      da_using_fk20 (8192 proofs, its launches counted as a path), eight
      of them against the host oracle;
-  8. times on the card after warm-up: whole calls with CUDA events,
+  8. the verification path at the same shape (a DAS consumer checking a
+     blob's 128 cells, kzg_tpu/kzg/settings.py:189-225): the producer's
+     commitment and 128 proofs compressed to 48-byte points and
+     decompressed on the card (decompress_g1_batch: the square roots on
+     fr_pow, the subgroup check on K3), which must give the points sent;
+     one check_proof_multi_batch over all 128 cells (cell j: the coset
+     w^j <w_64>, its values in the coset's natural order) must be all
+     True, its launches counted as a path (K-a, K-b and K-c once each);
+     with cell 7 given cell 8's proof and one value of cell 100 changed,
+     exactly cells 7 and 100 False, and check_proof_multi on the host
+     pairing for four cells agreeing; K-a (g2_scalar_mul), K-b
+     (pairing_miller) and K-c (pairing_final_exp) against their plain
+     versions bit for bit at the path's first 5 lanes, with a G2 point at
+     infinity (K-a), a1 at infinity, b2 flagged at infinity and both in
+     one lane (K-b, and K-c on their Miller values);
+  9. times on the card after warm-up: whole calls with CUDA events,
      each kernel's device time (its output first held bit for bit against
      its plain version at the timed shape), the old routes beside the new
      ones in turns (K3 and K4 against the fixed-base product and the dense
@@ -100,7 +115,10 @@ Phases; any failure raises and the script exits non-zero with no result:
      turns at 1 and 9 blobs, the per-level route against fr_das_block,
      and the producer path on the per-level extension route against it
      on fr_das_block; fr_signed_windows' and butterfly's rows at each of
-     their shapes.
+     their shapes; the batched check of 128 cells (ms, ms a cell, and its
+     trace) and the rows of K-a, K-b and K-c at its 128 lanes, each with
+     its bound and its latency bound (the longest chain of Fp products
+     on this run's data times the product's measured latency).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -141,6 +159,13 @@ EXTENSION_KERNELS = ("fr_das_block",)
 STAGE_DAS_KERNELS = ("fr_dif_stage", "fr_butterfly_stage", "fr_scale")
 # and the recovery's (the reconstruction path)
 RECOVERY_KERNELS = ("fr_zero_poly_leaves", "fr_batch_inv")
+# and the batched sample check's (the verification path): the coset
+# inverse FFTs, x^-1 and x^l, the interpolation commitments, a1 = I - C,
+# [x^l]_2 (K-a), the Miller loops (K-b) and the final exponentiation (K-c)
+VERIFY_KERNELS = ("fr_fft_block", "fr_batch_inv", "fr_pow",
+                  "fr_signed_windows", "g1_fixed_base_mul", "g1_sum",
+                  "g1_add", "g2_scalar_mul", "pairing_miller",
+                  "pairing_final_exp")
 
 
 def log(*a):
@@ -365,7 +390,8 @@ def main() -> int:
     from kzg_tpu_torch.curve import g1
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.curve.fft_g1 import reverse_bit_order_g1
-    from kzg_tpu_torch.curve import msm
+    from kzg_tpu_torch.curve import g2, msm, pairing_device, serialization
+    from kzg_tpu_torch.curve import pairing_kernels as pk
     from kzg_tpu_torch.curve.msm import tree_reduce
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
     from kzg_tpu_torch.das.legacy import erasure_code_recover
@@ -999,8 +1025,9 @@ def main() -> int:
     n, n2, l = 4096, 8192, 64
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     t = time.time()
-    ks = insecure_kzg_settings_device(SECRET, n, fs13)
+    ks = insecure_kzg_settings_device(SECRET, n, fs13, g2_indices=(1, l))
     torch.cuda.synchronize()
     crs_s = time.time() - t
     crs_aff = g1.to_affine_ints(JacobianPoint(*(c[[0, 1, n - 1]]
@@ -1029,7 +1056,7 @@ def main() -> int:
     crs_table_s = time.time() - t
     crs_table_bytes = crs_tables.numel() * crs_tables.element_size()
     crs_table_peak = torch.cuda.max_memory_allocated() - mem0
-    setup_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    setup_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"CRS (4096 points, K3): {crs_s:.2f} s; FK20 settings "
         f"(64 x 128-point G1 FFTs, batched): {setup_s:.2f} s; fixed-base "
         f"tables ({tables.shape[0]} x {tables.shape[1]} bases x 64 windows x "
@@ -1050,9 +1077,10 @@ def main() -> int:
 
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     coeffs, proofs = blob_to_proofs(blob)
     torch.cuda.synchronize()
-    fk20_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    fk20_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"proof path launches: {json.dumps(fk20_launches)}")
     for name in PATH_KERNELS:
         check(fk20_launches[name] > 0,
@@ -1122,9 +1150,10 @@ def main() -> int:
 
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     ext, cf, commit, proofs2 = producer(evens)
     torch.cuda.synchronize()
-    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"producer path launches: {json.dumps(launches)}")
     for name in PATH_KERNELS + EXTENSION_KERNELS:
         check(launches[name] > 0,
@@ -1139,8 +1168,10 @@ def main() -> int:
     checks["das_extension"] = max_abs_err(ext, plain_ext)
     cf_ints = [int(v) for v in fr.to_int(cf)]
     check(all(v == 0 for v in cf_ints[n:]), "top half of coefficients != 0")
-    check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in commit)))
-          == [host_ec.g1_mul(gen, eval_poly(cf_ints[:n], SECRET % r, r))],
+    commit_aff = g1.to_affine_ints(JacobianPoint(*(c[None]
+                                                    for c in commit)))[0]
+    check(commit_aff
+          == host_ec.g1_mul(gen, eval_poly(cf_ints[:n], SECRET % r, r)),
           "the commitment differs from the host oracle")
     crs_n = JacobianPoint(*(c[:n] for c in ks.secret_g1))
     check(same(g1.to_affine(msm.lin_comb_g1(crs_n, cf[:n])),
@@ -1195,9 +1226,10 @@ def main() -> int:
 
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     rec, rcf, rcommit, rproofs = reconstruct(samples)
     torch.cuda.synchronize()
-    rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    rec_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"reconstruction path launches: {json.dumps(rec_launches)}")
     for name in PATH_KERNELS + RECOVERY_KERNELS:
         check(rec_launches[name] > 0,
@@ -1230,13 +1262,14 @@ def main() -> int:
 
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     fk._launch_mont_mul = counted_k1
     try:
         rec1 = recover_poly_from_samples(fs13, samples, missing)
         torch.cuda.synchronize()
     finally:
         fk._launch_mont_mul = launch_k1
-    recovery_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    recovery_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     one_lane_k1 = sum(1 for k in k1_lanes if k == 1)
     log(f"recovery launches: {json.dumps(recovery_launches)}; K1 launches "
         f"of one lane: {one_lane_k1}")
@@ -1290,6 +1323,7 @@ def main() -> int:
     zpt = random_fr_ints(rng, 1, r)[0]
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     for method in ("auto", "serial"):
         pf = ks.compute_proof_single(cf[:n], zpt, method=method)
         check(g1.to_affine_ints(JacobianPoint(*(c[None] for c in pf)))
@@ -1304,7 +1338,7 @@ def main() -> int:
     pm = ks.compute_proof_multi(cf[:n], pow(w2, ci, r), l)
     torch.cuda.synchronize()
     proof_multi_s = time.time() - t
-    api_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    api_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"proof API launches: {json.dumps(api_launches)}")
     for name in ("fr_add_sub", "fr_pow"):
         check(api_launches[name] > 0,
@@ -1325,9 +1359,10 @@ def main() -> int:
     single_setup_s = time.time() - t
     fk.reset_launches()
     gk.reset_launches()
+    pk.reset_launches()
     sproofs = fks.da_using_fk20(cf[:n])
     torch.cuda.synchronize()
-    single_launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    single_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
     log(f"FK20 single launches: {json.dumps(single_launches)}")
     for name in ("g1_fixed_base_mul", "g1_window_table", "g1_fft_stage"):
         check(single_launches[name] > 0,
@@ -1341,7 +1376,138 @@ def main() -> int:
     log(f"FK20 single: {n2}-point CRS and settings {single_setup_s:.2f} s; "
         f"da_using_fk20 gives {n2} proofs, {spots} equal the host oracle")
 
-    # ---- 8. times ----
+    # ---- 8. the verification path at the PeerDAS shape ----
+    # A DAS consumer's check of a blob's 128 cells (cell j: the coset
+    # x_j <w_64>, x_j = w13^j, its values ext[j + 128 i], i < 64, in the
+    # coset's natural order), on the producer's commitment and proofs sent
+    # as 48-byte compressed points.
+    n_cells = n2 // l
+    xs_v = [pow(w2, j, r) for j in range(n_cells)]
+    ys_v = ext.reshape(l, n_cells, fr.N_WORDS).transpose(0, 1).contiguous()
+    sent = [commit_aff] + g1.to_affine_ints(proofs2)
+    wire = [serialization.compress_g1(a) for a in sent]
+    t = time.time()
+    got_pts = serialization.decompress_g1_batch(wire, device=dev)
+    decompress_s = time.time() - t
+    check(got_pts == sent, "decompressed points differ from those sent")
+    commit_v = JacobianPoint(*(c[0] for c in g1.from_affine_ints(
+        got_pts[:1], dev)))
+    proofs_v = g1.from_affine_ints(got_pts[1:], dev)
+    fk.reset_launches()
+    gk.reset_launches()
+    pk.reset_launches()
+    t = time.time()
+    verdicts = ks.check_proof_multi_batch(commit_v, proofs_v, xs_v, ys_v)
+    torch.cuda.synchronize()
+    verify_first_s = time.time() - t
+    verify_launches = {**fk.LAUNCHES, **gk.LAUNCHES, **pk.LAUNCHES}
+    log(f"verification path launches: {json.dumps(verify_launches)}")
+    for name in VERIFY_KERNELS:
+        check(verify_launches[name] > 0,
+              f"{name} was not launched on the verification path")
+    for name in ("g2_scalar_mul", "pairing_miller", "pairing_final_exp"):
+        check(verify_launches[name] == 1,
+              f"the verification path launched {name} "
+              f"{verify_launches[name]} times")
+    check(verdicts == [True] * n_cells,
+          f"cells failed the batched check: "
+          f"{[j for j, v in enumerate(verdicts) if not v]}")
+    # tampered: cell 7 carries cell 8's proof, one value of cell 100 is off
+    bad_proof, other, bad_ys = 7, 8, 100
+    proofs_t = JacobianPoint(*(c.clone() for c in proofs_v))
+    for c in proofs_t:
+        c[bad_proof] = c[other]
+    ys_t = ys_v.clone()
+    ys_t[bad_ys, 5] = fr.add(ys_t[bad_ys, 5], fr.from_int(1, dev))
+    verdicts_t = ks.check_proof_multi_batch(commit_v, proofs_t, xs_v, ys_t)
+    check([j for j, v in enumerate(verdicts_t) if not v]
+          == [bad_proof, bad_ys],
+          f"tampered lanes: {[j for j, v in enumerate(verdicts_t) if not v]}"
+          f" are False, not [{bad_proof}, {bad_ys}]")
+    host_cells = (0, bad_proof, other, bad_ys)
+    host_v = [ks.check_proof_multi(
+        commit_v, JacobianPoint(*(c[j] for c in proofs_t)), xs_v[j], ys_t[j])
+        for j in host_cells]
+    check(host_v == [verdicts_t[j] for j in host_cells],
+          f"the host checks {host_v} differ from the batch's")
+    log(f"verification: {len(wire)} points decompressed on the card "
+        f"({decompress_s:.3f} s, subgroup check on K3) equal those sent; "
+        f"check_proof_multi_batch: all {n_cells} cells True "
+        f"(first call {verify_first_s:.3f} s); tampered proof of cell "
+        f"{bad_proof} and value of cell {bad_ys}: exactly those False; the "
+        f"host checks of cells {host_cells} agree ({host_v})")
+
+    # the pairing kernels' inputs on the path, captured from one call
+    captured = {}
+
+    def capture(mod, name):
+        orig = getattr(mod, name)
+
+        def wrapped(*a):
+            captured[name] = a
+            return orig(*a)
+
+        setattr(mod, name, wrapped)
+        return mod, name, orig
+
+    saved = [capture(g2, "g2_scalar_mul"),
+             capture(pairing_device, "pairing_miller"),
+             capture(pairing_device, "pairing_final_exp")]
+    try:
+        ks.check_proof_multi_batch(commit_v, proofs_v, xs_v, ys_v)
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+    def lanes(args, k):
+        """A copy of the first k lanes of a kernel's arguments."""
+        out = []
+        for a in args:
+            if isinstance(a, JacobianPoint):
+                out.append(JacobianPoint(*(c[:k].clone() for c in a)))
+            else:
+                out.append(a[:k].clone())
+        return out
+
+    # The path's first 5 lanes, with the branches a point at infinity
+    # takes (I - C is at infinity for a cell whose interpolation
+    # polynomial is the blob's): K-a's lane 1 gets Z = 0; K-b's lane 2
+    # gets a1 at infinity in g1_add's all-zero encoding, lane 3 a b2
+    # flagged at infinity, lane 4 both, so that its Miller value is one;
+    # K-c takes the plain Miller values of those lanes.
+    edge_a = lanes(captured["g2_scalar_mul"], 5)
+    edge_a[0].z[1] = 0
+    edge_b = lanes(captured["pairing_miller"], 5)
+    for c in edge_b[0]:
+        c[2] = 0
+        c[4] = 0
+    edge_b[7][3] = True
+    edge_b[7][4] = True
+    edge_c = [pk.pairing_miller_plain(*edge_b)]
+    twins = {"g2_scalar_mul": (pk.g2_scalar_mul, pk.g2_scalar_mul_plain,
+                               edge_a),
+             "pairing_miller": (pk.pairing_miller, pk.pairing_miller_plain,
+                                edge_b),
+             "pairing_final_exp": (pk.pairing_final_exp,
+                                   pk.pairing_final_exp_plain, edge_c)}
+    for name, (kern, plain, a) in twins.items():
+        got, want = kern(*a), plain(*a)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        check(same(got, want),
+              f"{name} differs from its plain version at 5 lanes with "
+              f"points at infinity")
+        checks[name] = max_abs_err(got, want)
+    inf_a = g2.to_affine(JacobianPoint(*(c[1:2] for c in
+                                         pk.g2_scalar_mul(*edge_a))))[2]
+    check(bool(inf_a.all()), "K-a of a point at infinity is not infinity")
+    check(bool(pk.pairing_final_exp(edge_c[0])[1][4]),
+          "the lane with both pairs at infinity is not one")
+    log("K-a, K-b and K-c equal their plain versions bit for bit at the "
+        "path's first 5 lanes, with a G2 point at infinity (K-a), a1 at "
+        "infinity, b2 flagged at infinity and both (K-b, K-c)")
+
+    # ---- 9. times ----
     def timed(fn, reps):
         return cuda_ms(fn, reps)
 
@@ -1437,7 +1603,8 @@ def main() -> int:
     path_launches = {"setup": setup_launches, "proof": fk20_launches,
                      "producer": launches, "reconstruction": rec_launches,
                      "proof_api": api_launches,
-                     "fk20_single": single_launches}
+                     "fk20_single": single_launches,
+                     "verification": verify_launches}
     kernels = []
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
@@ -2030,6 +2197,58 @@ def main() -> int:
            64 * (64 * 65 // 2) * (2 * 8 * 8 + 8),
            checks["fr_zero_poly_leaves"], chain=64, lat=fr_lat_ms)
 
+    # the verification path: the batched check of the 128 cells, timed and
+    # traced, and its three pairing kernels at the path's 128 lanes
+    def verify():
+        return ks.check_proof_multi_batch(commit_v, proofs_v, xs_v, ys_v)
+
+    verify_ms = timed(verify, 2)
+    verify_profile = trace("verification", verify, verify_ms)
+    log(f"[{card}] check_proof_multi_batch ({n_cells} cells): "
+        f"{verify_ms:.3f} ms = {verify_ms / n_cells:.4f} ms a cell")
+    fp_words = 2 * 12 * 12 + 12       # word multiply-adds of an Fp product
+    inv_chain = 380 + bin(fp.SPEC.modulus - 2).count("1") - 1
+    f12_inv_chain = 109 + inv_chain
+    dig_a = captured["g2_scalar_mul"][1]
+    nz = dig_a != 0
+    top = torch.where(nz, torch.arange(dig_a.shape[-1], device=dev),
+                      -1).max(-1).values.clamp(min=0)
+    chains_a = 8 + 7 * 36 + top * 4 * 22 + nz.sum(-1) * 36 + 8
+    record("g2_scalar_mul", "g2_scalar_mul_kernel",
+           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+           "kzg_tpu/kzg/settings.py:60-66",
+           lambda: tuple(pk.g2_scalar_mul(*captured["g2_scalar_mul"])),
+           lambda: tuple(pk.g2_scalar_mul_plain(
+               *captured["g2_scalar_mul"])),
+           n_cells * (288 + 256 + 288), int(chains_a.sum()) * fp_words,
+           checks["g2_scalar_mul"], reps=3, chain=int(chains_a.max()),
+           shape=f"{n_cells} lanes")
+    mill = captured["pairing_miller"]
+    active = 2 - (fp.is_zero(mill[0].z) | mill[3].bool()).long() \
+        - (fp.is_zero(mill[4].z) | mill[7].bool()).long()
+    chains_b = 2 * (inv_chain + 4) + 63 * 36 + active * (
+        63 * (27 + 43) + 5 * (35 + 43))
+    record("pairing_miller", "pairing_miller_kernel",
+           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+           "kzg_tpu/curve/pairing_device.py:97-205",
+           lambda: pk.pairing_miller(*mill),
+           lambda: pk.pairing_miller_plain(*mill),
+           n_cells * (2 * 3 * 48 + 2 * 2 * 96 + 2 * 4 + 576),
+           int(chains_b.sum()) * fp_words, checks["pairing_miller"], reps=3,
+           chain=int(chains_b.max()), shape=f"{n_cells} lanes")
+    sel = pk.HARD_SELECTORS
+    chain_c = (f12_inv_chain + 54 + 18 + 54 + 3 * 18 + 15 * 54
+               + len(sel) * 36 + sum(1 for v in sel if v) * 54)
+    fexp_in = captured["pairing_final_exp"][0]
+    record("pairing_final_exp", "pairing_final_exp_kernel",
+           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+           "kzg_tpu/curve/pairing_device.py:252-312",
+           lambda: pk.pairing_final_exp(fexp_in),
+           lambda: pk.pairing_final_exp_plain(fexp_in),
+           n_cells * (576 + 576 + 4) + 3 * 576 + 4 * len(sel),
+           n_cells * chain_c * fp_words, checks["pairing_final_exp"],
+           reps=3, chain=chain_c, shape=f"{n_cells} lanes")
+
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
               "proofs_per_s": n2 // l / fk20_ms * 1e3,
@@ -2060,7 +2279,11 @@ def main() -> int:
               "kernel_timing": timing, "fk20_profile": profile,
               "commit_profile": commit_profile,
               "das_extension_profile": ext_profile,
-              "recover_profile": recover_profile}
+              "recover_profile": recover_profile,
+              "verify_ms": verify_ms, "verify_ms_a_cell": verify_ms / n_cells,
+              "verify_first_s": verify_first_s,
+              "decompress_129_s": decompress_s,
+              "verify_profile": verify_profile}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,10 @@ PyTorch headers, so a build takes seconds. The hash covers the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built at import: the first kernel call builds what it needs,
 and `build_all` starts every build at once.
+
+`host_library` builds the host pairing library from native/pairing.cpp
+with g++ and the flags of native/Makefile, into build/native/ (the port
+never loads or writes native/'s own build).
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
 SOURCES = ("fr_kernels", "fr_route_kernels", "g1_kernels", "g1_fft_kernels",
-           "g1_table_kernels", "g1_point_kernels", "g1_sum_kernels")
+           "g1_table_kernels", "g1_point_kernels", "g1_sum_kernels",
+           "pairing_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,7 +69,15 @@ SIGNATURES = {
         "kzg_g1_sum": (_P,) * 6 + (_I,) * 4 + (_P,),
         "kzg_g1_horner": (_P,) * 6 + (_I, _P),
     },
+    "pairing_kernels": {
+        "kzg_g2_scalar_mul": (_P,) * 7 + (_I, _I, _P),
+        "kzg_pairing_miller": (_P,) * 13 + (_I, _P),
+        "kzg_pairing_final_exp": (_P,) * 5 + (_I, _I, _P),
+    },
 }
+ROOT = os.path.dirname(os.path.dirname(CSRC))
+NATIVE_SOURCE = os.path.join(ROOT, "native", "pairing.cpp")
+HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _lock = threading.Lock()
 
@@ -138,6 +151,30 @@ def library(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The host pairing library, built from native/pairing.cpp into
+    build/native/libkzgpair-<hash>.so at first use; raises if g++ fails."""
+    with open(NATIVE_SOURCE, "rb") as f:
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + f.read())
+    path = os.path.join(ROOT, "build", "native",
+                        f"libkzgpair-{h.hexdigest()[:16]}.so")
+    with _lock:
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            out = subprocess.run(["g++", *HOST_FLAGS, "-o", tmp, NATIVE_SOURCE],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f"g++ failed for {NATIVE_SOURCE}:\n"
+                                   f"{out.stdout}{out.stderr}")
+            os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    lib.kzg_pairings_verify.restype = ctypes.c_int
+    lib.kzg_pairings_verify.argtypes = (ctypes.c_char_p, ctypes.c_int) * 4
     return lib
 
 

@@ -1,7 +1,8 @@
 """G1: points of E(Fp): y^2 = x^3 + 4, as batched Jacobian word tensors.
 
-`mul` is kernel K3 (with its scalar recoding on K1); add/sub/double are
-the plain masked-select Jacobian formulas with their products on K1.
+`mul` is kernel K3 (after one `fr_signed_windows` launch); add/sub/double
+are the plain masked-select Jacobian formulas with their products on K1;
+`in_subgroup` is [r - 1]P == -P on K3.
 `ops_kernel` is the same curve interface with add and double on the point
 kernels, one launch each, for the MSM and FK20's tree sum.
 """
@@ -15,17 +16,6 @@ from ..field import fp, fr
 from ..field.constants import G1_GENERATOR_X, G1_GENERATOR_Y
 from .kernels import g1_add, g1_double, g1_scalar_mul
 from .weierstrass import CurveOps, JacobianPoint, map_points
-
-ops = CurveOps(fp)
-
-add = ops.add
-sub = ops.sub
-double = ops.double
-neg = ops.neg
-select = ops.select
-is_infinity = ops.is_infinity
-to_affine = ops.to_affine
-
 
 class KernelG1Ops:
     """CurveOps-shaped facade whose add and double are the point kernels
@@ -83,6 +73,20 @@ def mul(p: JacobianPoint, scalars_mont) -> JacobianPoint:
                         for c in p))
     digits = digits.expand(shape + (digits.shape[-1],)).contiguous()
     return g1_scalar_mul(p, digits)
+
+
+ops = CurveOps(fp, mul)
+
+add = ops.add
+sub = ops.sub
+double = ops.double
+neg = ops.neg
+select = ops.select
+is_infinity = ops.is_infinity
+to_affine = ops.to_affine
+eq = ops.eq
+in_subgroup = ops.in_subgroup
+mul_small = ops.mul_small
 
 
 def from_affine_ints(coords, device="cuda") -> JacobianPoint:

@@ -4,7 +4,9 @@ Points are `JacobianPoint`s of word tensors (X, Y, Z), x = X/Z^2 and
 y = Y/Z^3; infinity is Z == 0 (built here as (1, 1, 0), while the ladder
 kernels return all-zero words: compare points in affine form). Every edge
 case (infinity, doubling, P == -Q) is a masked select, as in
-kzg_tpu/curve/weierstrass.py; each field product runs on kernel K1.
+kzg_tpu/curve/weierstrass.py; each field product runs on kernel K1. The
+field is `fp` (G1) or `curve.fp2` (G2): every op treats the leading axes
+as batch.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..field import fr
+from ..field.constants import FR_MODULUS
 
 
 class JacobianPoint(NamedTuple):
@@ -26,8 +31,14 @@ def map_points(fn, *ps: JacobianPoint) -> JacobianPoint:
 
 
 class CurveOps:
-    def __init__(self, F):
+    def __init__(self, F, scalar_mul):
+        """F: the field module; scalar_mul: the curve's ladder kernel
+        (points, Fr Montgomery scalars) -> points."""
         self.F = F
+        self.scalar_mul = scalar_mul
+
+    def from_affine(self, x, y) -> JacobianPoint:
+        return JacobianPoint(x, y, self.F.one_like(x))
 
     def infinity_like(self, p: JacobianPoint) -> JacobianPoint:
         one = self.F.one_like(p.x)
@@ -99,6 +110,36 @@ class CurveOps:
 
     def select(self, mask, a: JacobianPoint, b: JacobianPoint):
         return map_points(lambda u, v: self.F.select(mask, u, v), a, b)
+
+    def eq(self, p: JacobianPoint, q: JacobianPoint):
+        """Projective equality by cross-multiplied coordinates; both at
+        infinity (any Z == 0 encoding) are equal."""
+        F = self.F
+        z1z1, z2z2 = F.sqr(p.z), F.sqr(q.z)
+        u1, u2, s1, s2 = self._mul_tier(
+            (p.x, q.x, p.y, q.y), (z2z2, z1z1, q.z, p.z))
+        s1, s2 = self._mul_tier((s1, s2), (z2z2, z1z1))
+        p_inf, q_inf = self.is_infinity(p), self.is_infinity(q)
+        return (p_inf & q_inf) | (~p_inf & ~q_inf & F.eq(u1, u2)
+                                  & F.eq(s1, s2))
+
+    def mul_small(self, p: JacobianPoint, k: int) -> JacobianPoint:
+        """p * k for a static non-negative int: double-and-add MSB first,
+        branching in Python on each bit."""
+        acc = self.infinity_like(p)
+        for bit in bin(k)[2:] if k else "":
+            acc = self.double(acc)
+            if bit == "1":
+                acc = self.add(acc, p)
+        return acc
+
+    def in_subgroup(self, p: JacobianPoint):
+        """r-torsion membership mask, [r]P == O (the cofactors are large,
+        so on-curve does not imply it; kzg_tpu/curve/weierstrass.py:
+        280-287). The ladder takes Fr scalars, where r itself is 0, so
+        the test is [r - 1]P == -P, one launch."""
+        k = fr.from_int(FR_MODULUS - 1, p.x.device)
+        return self.eq(self.scalar_mul(p, k), self.neg(p))
 
     def to_affine(self, p: JacobianPoint):
         """-> (x, y, is_infinity); infinity maps to (0, 0, True)."""

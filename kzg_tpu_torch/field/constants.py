@@ -25,6 +25,13 @@ FR_PRIMITIVE_ROOT = 7
 # The 2-adicity of r-1: r-1 = 2^32 * odd.
 FR_TWO_ADICITY = 32
 
+# The BLS parameter x (negative): the Miller loop runs over |x|.
+BLS_X = -0xD201000000010000
+
+# Curve equations: E/Fp:  y^2 = x^3 + 4
+#                  E'/Fp2: y^2 = x^3 + 4*(u+1)
+CURVE_B = 4
+
 # G1 generator, affine, canonical integer coordinates.
 G1_GENERATOR_X = int(
     "0x17f1d3a73197d7942695638c4fa9ac0fc3688c4f9774b905a14e3a3f171bac58"
@@ -35,6 +42,20 @@ G1_GENERATOR_Y = int(
     "0x08b3f481e3aaa0f1a09e30ed741d8ae4fcf5e095d5d00af600db18cb2c04b3ed"
     "d03cc744a2888ae40caa232946c5e7e1",
     16,
+)
+
+# G2 generator (affine, coordinates in Fp2 as (c0, c1) with u^2 = -1).
+G2_GENERATOR_X = (
+    int("0x024aa2b2f08f0a91260805272dc51051c6e47ad4fa403b02b4510b647ae3d177"
+        "0bac0326a805bbefd48056c8c121bdb8", 16),
+    int("0x13e02b6052719f607dacd3a088274f65596bd0d09920b61ab5da61bbdc7f5049"
+        "334cf11213945d57e5ac7d055d042b7e", 16),
+)
+G2_GENERATOR_Y = (
+    int("0x0ce5d527727d6e118cc9cdc6da2e351aadfd9baa8cbdd3a76d429a695160d12c"
+        "923ac9cc3baca289e193548608b82801", 16),
+    int("0x0606c4a02ea734cc32acd2b02bc28b99cb3e287e85a763af267492ab572e99ab"
+        "3f370d275cec1da1aaa9075ff05f79be", 16),
 )
 
 

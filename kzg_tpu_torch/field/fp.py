@@ -2,7 +2,8 @@
 
 An Fp batch is a torch.int32 tensor (..., 12) in Montgomery form
 (R = 2^384), always fully reduced. `mul`/`sqr` run on kernel K1, add,
-sub and neg on `fr_add_sub`, `inv` on `fr_pow`.
+sub and neg on `fr_add_sub`, `pow_static` and `inv` on `fr_pow`;
+`batch_inv` is the Montgomery trick on K1 scans and one `fr_pow`.
 """
 
 from __future__ import annotations
@@ -39,15 +40,45 @@ def sqr(a):
     return mont_mul(SPEC, a, a)
 
 
+def pow_static(a, e: int):
+    """a^e for a static exponent, lane-parallel: one fr_pow launch."""
+    return fr_pow(SPEC, a, e)
+
+
 def inv(a):
     """Fermat inverse a^(p-2), lane-parallel (square-and-multiply over
     the static exponent, MSB first); 0 -> 0."""
-    return fr_pow(SPEC, a, SPEC.modulus - 2)
+    return pow_static(a, SPEC.modulus - 2)
+
+
+def batch_inv(a):
+    """Inverse of every lane over all leading axes, 0 -> 0 (zero lanes do
+    not poison the batch): the Montgomery trick, inclusive prefix and
+    suffix products by doubling (2 log2 n K1 launches), one Fermat ladder
+    for the total, and two products (kzg_tpu/field/limbs.py:389-422)."""
+    n = a.numel() // N_WORDS
+    if n == 0:
+        return a.clone()
+    flat = a.reshape(n, N_WORDS)
+    zero = is_zero(flat)
+    one = one_like(flat)
+    x = select(zero, one, flat)
+    pre = limbs.prefix_products(mul, x)
+    suf = limbs.prefix_products(mul, x, reverse=True)
+    total_inv = inv(pre[-1:])
+    left = torch.cat((one[:1], pre[:-1]))
+    right = torch.cat((suf[1:], one[:1]))
+    out = mul(mul(left, right), total_inv[0])
+    return select(zero, torch.zeros_like(out), out).reshape(a.shape)
 
 
 eq = limbs.eq
 is_zero = limbs.is_zero
 select = limbs.select
+
+
+def zero_like(a) -> torch.Tensor:
+    return torch.zeros_like(a)
 
 
 def one_like(a) -> torch.Tensor:

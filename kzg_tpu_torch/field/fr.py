@@ -41,6 +41,10 @@ def mul(a, b):
     return mont_mul(SPEC, a, b)
 
 
+def sqr(a):
+    return mont_mul(SPEC, a, a)
+
+
 def pow_static(a, e: int):
     return fr_pow(SPEC, a, e)
 
@@ -85,6 +89,67 @@ def scalar_windows_signed(a_mont) -> torch.Tensor:
     j < 63 and s_63 in [0, 8] (kzg_tpu/field/fr.py:109-130): one launch
     of fr_signed_windows, which reduces the words itself."""
     return fr_signed_windows(a_mont)
+
+
+def scalar_bits(a_mont) -> torch.Tensor:
+    """Canonical bits of Montgomery-form scalars: int32 (..., 256) with
+    bit i = (a >> i) & 1 (kzg_tpu/field/fr.py:133-143)."""
+    canon = from_mont(a_mont).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=canon.device)
+    bits = (canon.unsqueeze(-1) >> shifts) & 1
+    return bits.flatten(-2).to(torch.int32)
+
+
+# ---- bytes (ValidFr, FrFrom32 / FrTo32; kzg_tpu/field/fr.py:175-236) ----
+def valid_fr_bytes(b32: bytes) -> bool:
+    """ValidFr on 32 little-endian bytes (reference:
+    bls/bignum_all.go:12-35)."""
+    if len(b32) != 32:
+        raise ValueError("need exactly 32 bytes")
+    return int.from_bytes(b32, "little") < SPEC.modulus
+
+
+def from_bytes32_le(b32: bytes, device="cuda"):
+    """FrFrom32: 32 little-endian bytes -> Fr words (8,), None if the
+    value is not below r."""
+    if not valid_fr_bytes(b32):
+        return None
+    return from_int(int.from_bytes(b32, "little"), device)
+
+
+def to_bytes32_le(a) -> bytes:
+    """FrTo32: one Fr element -> its canonical 32 little-endian bytes."""
+    return int(to_int(a).reshape(-1)[0]).to_bytes(32, "little")
+
+
+def valid_bytes32_batch(data) -> np.ndarray:
+    """ValidFr over N 32-byte little-endian chunks -> bool (N,)."""
+    raw = np.frombuffer(bytes(data), dtype=np.uint8).reshape(-1, 32)
+    mod = np.frombuffer(SPEC.modulus.to_bytes(32, "little"), np.uint8)
+    diff = raw != mod
+    # the most significant differing byte decides
+    top = 31 - np.argmax(diff[:, ::-1], axis=1)
+    rows = np.arange(raw.shape[0])
+    return diff.any(axis=1) & (raw[rows, top] < mod[top])
+
+
+def from_bytes32_batch(data, device="cuda"):
+    """N x 32 little-endian bytes -> (Montgomery words (N, 8), valid bool
+    (N,)): one K1 product by R^2 mod r. Rows that are not below r come
+    out as some field element; the caller checks `valid` (the eth layer
+    rejects a whole blob on any invalid element, eth/helpers.go:264-273)."""
+    raw = np.frombuffer(bytes(data), dtype="<i4").reshape(-1, N_WORDS)
+    words = torch.from_numpy(raw.copy()).to(device)
+    r2 = SPEC.words([SPEC.r2], device)[0]
+    return mul(words, r2), valid_bytes32_batch(data)
+
+
+def to_bytes32_batch(a) -> np.ndarray:
+    """Montgomery words (..., 8) -> uint8 (..., 32), the canonical values'
+    little-endian bytes (one K1 product by 1)."""
+    canon = from_mont(a).cpu().numpy().astype("<i4")
+    return np.ascontiguousarray(canon).view(np.uint8).reshape(
+        canon.shape[:-1] + (32,))
 
 
 # ---- host conversions ----

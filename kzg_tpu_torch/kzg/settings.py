@@ -1,10 +1,14 @@
-"""KZG settings: the FFT domain and the G1 CRS [s^i]_1; commitments and
-single and multi (coset) proofs.
+"""KZG settings: the FFT domain, the G1 CRS [s^i]_1 and [s^i]_2;
+commitments, single and multi (coset) proofs, and their checks
+(kzg_tpu/kzg/settings.py).
 
-A counterpart of kzg_tpu/kzg/settings.py for the prover's side: commit to
-a polynomial in coefficient or evaluation form, and commit to the
-quotients of single-point and coset proofs. Verification (the `check_*`
-methods) and G2 come with a later slice.
+Commitments, quotients and interpolation commitments are device work. The
+checks of one sample (`check_proof_single`, `check_proof_multi`) end in
+one pairing product on the host's native library
+(curve/pairing_native.py), as in the reference. `check_proof_multi_batch`
+checks N coset samples on the card: their interpolation commitments as one
+batched fixed-base MSM, [x_i^l]_2 on K-a, the N pairing products on K-b
+and K-c.
 """
 
 from __future__ import annotations
@@ -14,18 +18,47 @@ import functools
 import torch
 
 from .. import poly
+from ..curve import g1, g2, pairing
 from ..curve.msm import fixed_base_tables, lin_comb_fixed
+from ..curve.pairing_device import pairings_product_is_one
 from ..curve.weierstrass import JacobianPoint
-from ..field import fr
-from ..field.constants import FR_MODULUS
+from ..field import fp, fr
+from ..field.constants import FP_MODULUS, FR_MODULUS
 from ..ntt.domain import FFTSettings
 from ..ntt.fft_fr import fft
+from ..utils import host_ec
+
+
+def _as_affine_g1(pt):
+    """A device JacobianPoint (one point, coords (12,)) or a host affine
+    tuple / None -> host affine (the one inverse on the host)."""
+    if not isinstance(pt, JacobianPoint):
+        return pt
+    x, y, z = (int(fp.to_int(c.reshape(-1, fp.N_WORDS))[0]) for c in pt)
+    if z == 0:
+        return None
+    zi = pow(z, -1, FP_MODULUS)
+    return (x * zi * zi % FP_MODULUS, y * pow(zi, 3, FP_MODULUS) % FP_MODULUS)
 
 
 class KZGSettings:
-    def __init__(self, fs: FFTSettings, secret_g1: JacobianPoint):
+    def __init__(self, fs: FFTSettings, secret_g1: JacobianPoint,
+                 secret_g2_affine=None):
+        """secret_g1: (n,) G1 batch on fs.device; secret_g2_affine: host
+        list of [s^i]_2 as affine Fp2 pairs, None where not computed (the
+        checks read index 1 and the coset width), or None for a prover's
+        settings."""
         self.fs = fs
         self.secret_g1 = secret_g1
+        self.secret_g2_affine = (None if secret_g2_affine is None
+                                 else list(secret_g2_affine))
+
+    def _s2(self, i: int):
+        if self.secret_g2_affine is None or \
+                i >= len(self.secret_g2_affine) or \
+                self.secret_g2_affine[i] is None:
+            raise ValueError(f"these settings hold no [s^{i}]_2")
+        return self.secret_g2_affine[i]
 
     @functools.cached_property
     def secret_g1_tables(self) -> torch.Tensor:
@@ -67,6 +100,18 @@ class KZGSettings:
                 poly.poly_quotient_on_domain(self.fs, coeffs, z))
         return self.commit_to_poly(poly.poly_factor_div(coeffs, z))
 
+    def check_proof_single(self, commitment, proof, x: int, y: int) -> bool:
+        """e(proof, [s - x]_2) == e(commitment - [y]_1, G2) on the host
+        pairing (reference: CheckProofSingle, kzg_single_proofs.go:57-75).
+        Points: device JacobianPoints of one point, or affine ints."""
+        x2 = host_ec.g2_mul(host_ec.g2_generator(), x % FR_MODULUS)
+        xn2 = host_ec.g2_sub(self._s2(1), x2)              # [s - x]_2
+        y1 = host_ec.g1_mul(host_ec.g1_generator(), y % FR_MODULUS)
+        cm = host_ec.g1_sub(_as_affine_g1(commitment), y1)
+        return pairing.pairings_verify(host_ec.g1_neg(cm),
+                                       host_ec.g2_generator(),
+                                       _as_affine_g1(proof), xn2)
+
     def compute_proof_multi(self, coeffs, x0: int, n: int) -> JacobianPoint:
         """Proof for p on the coset x0 * <w_n>: the commitment to
         q(x) = p(x) / (x^n - x0^n) (reference: ComputeProofMulti,
@@ -78,3 +123,61 @@ class KZGSettings:
                              fr.zeros((n - 1,), coeffs.device),
                              fr.from_int([1], coeffs.device)))
         return self.commit_to_poly(poly.poly_long_div(coeffs, divisor))
+
+    def _interp_commit(self, ys, xinv) -> JacobianPoint:
+        """[I(s)]_1 for the polynomial I with I(x w^j) = ys[..., j, :]:
+        the inverse FFT (fr_fft_block), the scale by x^-j, and the
+        fixed-base MSM on the CRS tables (fr_signed_windows,
+        g1_fixed_base_mul, g1_sum). ys (..., n, 8), xinv (..., 8)."""
+        n = ys.shape[-2]
+        coeffs = fr.mul(fft(self.fs, ys, inverse=True),
+                        poly.powers_of(xinv, n))
+        return self.commit_to_poly(coeffs)
+
+    def check_proof_multi(self, commitment, proof, x: int, ys) -> bool:
+        """p(x w^i) == ys[i] for all i, in one host pairing product
+        (reference: CheckProofMulti, kzg_multi_proofs.go:47-88). ys: (n, 8)
+        claimed evaluations on the coset, in the domain's natural order."""
+        n = ys.shape[0]
+        xinv = pow(x % FR_MODULUS, -1, FR_MODULUS)
+        is1 = self._interp_commit(ys, fr.from_int(xinv, ys.device))
+        xn2 = host_ec.g2_mul(host_ec.g2_generator(),
+                             pow(x % FR_MODULUS, n, FR_MODULUS))
+        xn_minus = host_ec.g2_sub(self._s2(n), xn2)       # [s^n - x^n]_2
+        cm = host_ec.g1_sub(_as_affine_g1(commitment), _as_affine_g1(is1))
+        return pairing.pairings_verify(host_ec.g1_neg(cm),
+                                       host_ec.g2_generator(),
+                                       _as_affine_g1(proof), xn_minus)
+
+    def check_proof_multi_batch(self, commitment, proofs, xs, ys) -> list:
+        """N coset proofs checked at once on the card: for each sample i,
+        p(x_i w^j) == ys[i, j] for all j (the reference loops
+        CheckProofMulti, kzg_multi_proofs.go:47-88; kzg_tpu/kzg/settings.py
+        :189-225). commitment: one device point; proofs: (N,) G1 batch;
+        xs: N host ints; ys: (N, l, 8), each row in its coset's natural
+        order. Returns [bool] * N.
+
+        On the card: the N inverse FFTs (fr_fft_block), x_i^-1 (fr_batch_inv)
+        and its powers (K1), the N interpolation commitments as one
+        batched fixed-base MSM, a1 = [I_i(s)]_1 - C (g1_add), x_i^l
+        (fr_pow), [x_i^l]_2 (K-a), b2 = [s^l]_2 - [x_i^l]_2 (G2 ops on K1),
+        and e(a1, G2) e(proof_i, b2) == 1 (K-b, K-c)."""
+        n_samples, l = ys.shape[0], ys.shape[1]
+        if len(xs) != n_samples:
+            raise ValueError("xs/ys length mismatch")
+        dev = ys.device
+        x = fr.from_int([int(v) % FR_MODULUS for v in xs], dev)
+        is1 = self._interp_commit(ys, fr.batch_inv(x))            # (N,)
+        c = JacobianPoint(*(t.reshape(1, 12).expand(n_samples, 12)
+                            for t in commitment))
+        a1 = g1.ops_kernel.sub(is1, c)               # -(C - [I(s)]_1)
+        xg2 = g2.mul(g2.generator((n_samples,), dev),
+                     fr.pow_static(x, l))                   # [x^l]_2
+        s2l = g2.from_affine_ints([self._s2(l)], dev)
+        b2 = g2.sub(JacobianPoint(*(t.expand_as(u) for t, u in zip(s2l, xg2))),
+                    xg2)
+        gen = g2.generator((n_samples,), dev)
+        ginf = torch.zeros((n_samples,), dtype=torch.bool, device=dev)
+        ok = pairings_product_is_one(a1, (gen.x, gen.y, ginf), proofs,
+                                     g2.to_affine(b2))
+        return [bool(v) for v in ok.cpu()]

@@ -1,11 +1,13 @@
-"""Insecure testing setups: powers of a known secret times the G1
-generator (reference: GenerateTestingSetup, setup.go:9-26). For tests and
-benchmarks only. No G2 part: this slice only generates proofs.
+"""Insecure testing setups: powers of a known secret times the G1 and G2
+generators (reference: GenerateTestingSetup, setup.go:9-26;
+kzg_tpu/kzg/setup.py). For tests and benchmarks only.
 """
 
 from __future__ import annotations
 
-from ..curve import g1
+import functools
+
+from ..curve import g1, g2
 from ..field import fr
 from ..field.constants import FR_MODULUS
 from ..ntt.domain import FFTSettings
@@ -22,17 +24,35 @@ def secret_powers(secret: int, n: int) -> list:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def generate_testing_setup_ints(secret: int, n: int):
+    """-> (s1, s2): [s^i] G1 as affine int pairs and [s^i] G2 as affine
+    Fp2 pairs, i < n, by exact host arithmetic (small n only)."""
+    powers = secret_powers(secret, n)
+    s1 = tuple(host_ec.g1_mul(host_ec.g1_generator(), k) for k in powers)
+    s2 = tuple(host_ec.g2_mul(host_ec.g2_generator(), k) for k in powers)
+    return s1, s2
+
+
 def generate_testing_setup(secret: int, n: int, device="cuda"):
-    """-> (G1 JacobianPoint batch (n,), host affine list): [s^i] G1 by
-    exact host arithmetic (small n only)."""
-    g = host_ec.g1_generator()
-    s1 = [host_ec.g1_mul(g, k) for k in secret_powers(secret, n)]
-    return g1.from_affine_ints(s1, device), s1
+    """-> (G1 JacobianPoint batch (n,), G2 batch (n,), host affine G1 list,
+    host affine G2 list) (kzg_tpu/kzg/setup.py:139-156)."""
+    s1, s2 = generate_testing_setup_ints(secret, n)
+    return (g1.from_affine_ints(s1, device), g2.from_affine_ints(s2, device),
+            list(s1), list(s2))
 
 
-def insecure_kzg_settings_device(secret: int, n: int,
-                                 fs: FFTSettings) -> KZGSettings:
+def insecure_kzg_settings_device(secret: int, n: int, fs: FFTSettings,
+                                 g2_indices=(1,)) -> KZGSettings:
     """KZGSettings whose n-point G1 CRS is one batched scalar multiply
-    (one K3 launch) on fs.device (kzg_tpu/kzg/setup.py:109-136)."""
+    (one K3 launch) on fs.device, and whose [s^i]_2 are computed on the
+    host only for the indices the pairing checks read: 1 for
+    check_proof_single, the coset width for check_proof_multi (the rest
+    None) (kzg_tpu/kzg/setup.py:109-136)."""
     powers = fr.from_int(secret_powers(secret, n), fs.device)
-    return KZGSettings(fs, g1.mul(g1.generator((n,), fs.device), powers))
+    s2 = [None] * n
+    for i in set(int(i) for i in g2_indices):
+        if 0 <= i < n:
+            s2[i] = host_ec.g2_mul(host_ec.g2_generator(),
+                                   pow(secret, i, FR_MODULUS))
+    return KZGSettings(fs, g1.mul(g1.generator((n,), fs.device), powers), s2)

@@ -33,14 +33,14 @@ def sum_fr(vals, axis: int = -2):
 
 
 def powers_of(x, n: int):
-    """[x^0, ..., x^(n-1)] as (n, 8) by doubling: each step multiplies the
-    powers so far by x^m, then squares x^m."""
-    out = fr.from_int([1], x.device)
-    cur = x
-    while out.shape[0] < n:
-        out = torch.cat((out, fr.mul(out, cur)))
+    """[x^0, ..., x^(n-1)] as (..., n, 8) for x (..., 8), by doubling:
+    each step multiplies the powers so far by x^m, then squares x^m."""
+    out = fr.from_int([1], x.device).expand(x.shape[:-1] + (1, fr.N_WORDS))
+    cur = x if x.dim() == 1 else x.unsqueeze(-2)
+    while out.shape[-2] < n:
+        out = torch.cat((out, fr.mul(out, cur)), dim=-2)
         cur = fr.mul(cur, cur)
-    return out[:n]
+    return out[..., :n, :]
 
 
 def eval_poly_at(coeffs, x):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's outputs for the port's tests.
 
-    python tests/port/make_reference.py            # every group, ~30 min
+    python tests/port/make_reference.py            # every group, hours
     python tests/port/make_reference.py das msm    # only these groups
 
 Runs kzg_tpu on its CPU "vector" engine, set up as its own tests set it
@@ -22,6 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [ROOT, HERE, os.path.dirname(HERE)]
 
 import conftest  # noqa: E402,F401  (JAX on the CPU, as for the JAX tests)
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import port_helpers as ph  # noqa: E402
@@ -250,10 +251,93 @@ def record_proofs(put):
         tuple(fk.fk20_single_da_optimized(jnp.asarray(ext))), ext)
 
 
+def record_verify(put):
+    """The batch decompression, the device final exponentiation, the
+    Miller loop with it, and check_proof_multi."""
+    from kzg_tpu.curve import fp2, serialization, tower
+    from kzg_tpu.curve.pairing_device import (
+        _embed_fp,
+        final_exponentiation,
+        miller_loop_batched,
+        untwist_g2,
+    )
+
+    pts, good, off, bad = ph.decompress_case()
+    put("decompress:good", ph.affine_bytes(
+        serialization.decompress_g1_batch(good)), *good)
+    put("decompress:off_unchecked", ph.affine_bytes(
+        serialization.decompress_g1_batch([off], subgroup_check=False)), off)
+    for key, enc in (("decompress:off", [off]), ("decompress:bad", [bad])):
+        try:
+            serialization.decompress_g1_batch(enc)
+            msg = "accepted"
+        except ValueError as e:
+            msg = str(e)
+        put(key, np.asarray(msg), *enc)
+
+    f_ints = ph.random_f12_ints(130, ph.FEXP_LANES)
+    f = tower.f12_from_int(f_ints)
+    put("final_exp", jax.jit(final_exponentiation)(jnp.asarray(f)), f)
+
+    case = ph.miller_case()
+    p_ = g1.from_affine_ints([c[0] for c in case])
+    xa, ya, _ = g1.ops.to_affine(p_)
+    x2 = jnp.asarray(fp2.from_int([list(c[1][0]) for c in case]))
+    y2 = jnp.asarray(fp2.from_int([list(c[1][1]) for c in case]))
+
+    def miller_fe(x2, y2, xa, ya):
+        xq, yq = untwist_g2(x2, y2)
+        num, den = miller_loop_batched(xq, yq, _embed_fp(xa), _embed_fp(ya))
+        return final_exponentiation(
+            tower.f12_mul(num, tower.f12_inv(den)))
+
+    put("miller_final_exp", jax.jit(miller_fe)(x2, y2, xa, ya),
+        repr(case))
+
+    ks = kzg_env()
+    coeffs = jnp.asarray(fr.from_int(ph.PROOF_COEFFS))
+    commitment = ks.commit_to_poly(coeffs)
+    proof = ks.compute_proof_multi(coeffs, ph.MULTI_X, ph.MULTI_N)
+    got = [ks.check_proof_multi(commitment, proof, ph.MULTI_X,
+                                jnp.asarray(fr.from_int(ys)))
+           for ys in ph.multi_case()]
+    put("check_proof_multi", np.asarray(got), ph.TEST_SECRET, ph.CRS_SIZE,
+        ph.PROOF_COEFFS, ph.MULTI_X, ph.MULTI_N, ph.multi_case())
+
+
+def record_verify_batch(put):
+    """check_proof_multi_batch on tests/test_pairing_device.py:116-147's
+    case. kzg_tpu jits the whole check as one program, whose compile on
+    the CPU runs LLVM out of memory; so the recorder runs the same
+    function op by op (its pieces, the Miller scan and the final
+    exponentiation among them, compile one at a time)."""
+    import kzg_tpu.kzg.settings as ksettings
+    from kzg_tpu.curve.weierstrass import JacobianPoint
+
+    ks = kzg_env()
+    coeffs = jnp.asarray(fr.from_int(ph.BATCH_COEFFS))
+    commitment = ks.commit_to_poly(coeffs)
+    proofs = [ks.compute_proof_multi(coeffs, x, ph.BATCH_M)
+              for x in ph.BATCH_XS]
+    proofs_b = JacobianPoint(*(jnp.stack([p[i] for p in proofs])
+                               for i in range(3)))
+    rows = ph.batch_case()
+    jitted = ksettings._check_multi_batch
+    ksettings._check_multi_batch = jitted.__wrapped__
+    try:
+        got = ks.check_proof_multi_batch(commitment, proofs_b, ph.BATCH_XS,
+                                         jnp.asarray(fr.from_int(rows)))
+    finally:
+        ksettings._check_multi_batch = jitted
+    put("check_proof_multi_batch", np.asarray(got), ph.TEST_SECRET,
+        ph.CRS_SIZE, ph.BATCH_COEFFS, ph.BATCH_XS, rows)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
-          "recovery": record_recovery, "proofs": record_proofs}
+          "recovery": record_recovery, "proofs": record_proofs,
+          "verify": record_verify, "verify_batch": record_verify_batch}
 
 
 def main(names) -> None:
@@ -274,6 +358,7 @@ def main(names) -> None:
         else:
             out[key] = np.asarray(value)
         out[key + ":inputs"] = np.asarray(ph.inputs_hash(*inputs))
+        np.savez_compressed(ph.REFERENCE_FILE, **out)   # keep what is done
         print(f"[{time.time() - t0:7.1f} s] {key}", flush=True)
 
     for name in names or GROUPS:

@@ -353,3 +353,98 @@ def reference(key: str, *inputs):
     if key in rec:
         return rec[key]
     return tuple(rec[f"{key}:{c}"] for c in "xyz")
+
+
+# ---- the verification group (tests/port/test_torch_serialization.py,
+# test_torch_pairing.py, test_torch_verify.py) ----
+def wrong_subgroup_g1():
+    """The first on-curve G1 point (x, sqrt(x^3 + 4)), x < 100, outside the
+    r-order subgroup (tests/test_serialization.py:51-66)."""
+    from kzg_tpu_torch.field.constants import FP_MODULUS as p
+    from kzg_tpu_torch.utils import host_ec
+
+    for x in range(1, 100):
+        y2 = (pow(x, 3, p) + 4) % p
+        y = pow(y2, (p + 1) // 4, p)
+        if y * y % p == y2 and host_ec.g1_mul((x, y), _r()) is not None:
+            return (x, y)
+    raise AssertionError("no wrong-subgroup point found")
+
+
+def decompress_case():
+    """(points, their 48-byte encodings: 5 subgroup points, one with the
+    larger y, and infinity; the encoding of an on-curve point off the
+    subgroup; an invalid encoding, x >= p)."""
+    from kzg_tpu_torch.curve import serialization
+    from kzg_tpu_torch.field.constants import FP_MODULUS as p
+
+    pts = subgroup_affine(90, 5) + [None]
+    big = next(i for i, q in enumerate(pts[:5]) if q[1] > (p - 1) // 2)
+    assert big is not None
+    good = [serialization.compress_g1(q) for q in pts]
+    off = serialization.compress_g1(wrong_subgroup_g1())
+    bad = bytes([0x80 | 0x1F]) + b"\xff" * 47
+    return pts, good, off, bad
+
+
+def affine_bytes(points) -> np.ndarray:
+    """G1 affine ints / None -> uint8 (n, 97): x and y big-endian, then 1
+    for infinity (the recorded form of a decompressed batch)."""
+    out = np.zeros((len(points), 97), dtype=np.uint8)
+    for i, q in enumerate(points):
+        if q is None:
+            out[i, 96] = 1
+        else:
+            out[i, :96] = list(q[0].to_bytes(48, "big")
+                               + q[1].to_bytes(48, "big"))
+    return out
+
+
+def random_f12_ints(seed: int, n: int) -> list:
+    """n random Fp12 values as nested ints [w][v][u] (Fp12 = Fp6 + Fp6 w,
+    Fp6 = 3 Fp2, Fp2 = 2 Fp)."""
+    from kzg_tpu_torch.field.constants import FP_MODULUS as p
+
+    v = random_ints(np.random.default_rng(seed), 12 * n, p)
+    return [[[[v[12 * i + 6 * j + 2 * k], v[12 * i + 6 * j + 2 * k + 1]]
+              for k in range(3)] for j in range(2)] for i in range(n)]
+
+
+FEXP_LANES = 3
+
+
+def miller_case():
+    """Two lanes of (P, Q): P = a G1, Q = b G2 for seeded a, b."""
+    from kzg_tpu_torch.utils import host_ec
+
+    ks = random_ints(np.random.default_rng(120), 4, _r())
+    return [(host_ec.g1_mul(host_ec.g1_generator(), ks[2 * i]),
+             host_ec.g2_mul(host_ec.g2_generator(), ks[2 * i + 1]))
+            for i in range(2)]
+
+
+# tests/test_pairing_device.py:116-147's batch: kzg_env, the polynomial,
+# the coset width and the coset offsets; lane 2's ys are each off by one
+BATCH_COEFFS = [1, 2, 3, 4, 7, 8, 9, 10]
+BATCH_M = 4
+BATCH_XS = [5, 11, 13]
+
+
+def batch_case():
+    """-> ys rows (3, 4) as ints: p(x w^i) on each coset, lane 2 + 1."""
+    r = _r()
+    w = pow(7, (r - 1) // BATCH_M, r)
+    rows = [[eval_poly(BATCH_COEFFS, x * pow(w, i, r) % r, r)
+             for i in range(BATCH_M)] for x in BATCH_XS]
+    rows[2] = [(v + 1) % r for v in rows[2]]
+    return rows
+
+
+def multi_case() -> list:
+    """tests/test_kzg.py:62-73's ys on the coset MULTI_X <w_4> of
+    PROOF_COEFFS, then the same each + 1."""
+    r = _r()
+    w = pow(7, (r - 1) // MULTI_N, r)
+    ys = [eval_poly(PROOF_COEFFS, MULTI_X * pow(w, i, r) % r, r)
+          for i in range(MULTI_N)]
+    return [ys, [(v + 1) % r for v in ys]]

@@ -218,3 +218,80 @@ def test_route_generic_entry_points(fn, kernel, argc):
         assert f"n_words == {n}" in body
         assert f"{kernel}<{n}><<<" in body
     assert "cudaErrorInvalidValue" in body
+
+
+@pytest.mark.parametrize("fn,argc", [("kzg_g2_scalar_mul", 10),
+                                     ("kzg_pairing_miller", 15),
+                                     ("kzg_pairing_final_exp", 8)])
+def test_pairing_entry_points(fn, argc):
+    """The pairing kernels' C entry points are bound with their argument
+    counts, build.py compiles their source, and each launches its kernel
+    and returns cudaGetLastError."""
+    assert "pairing_kernels" in build.SOURCES
+    assert len(build.SIGNATURES["pairing_kernels"][fn]) == argc
+    text = source("pairing_kernels.cu")
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    kernel = fn[len("kzg_"):] + "_kernel<<<"
+    assert kernel in body and "cudaGetLastError()" in body
+
+
+def test_pairing_constants():
+    """The Miller loop's bits are |x| (x < 0, so the kernel and its plain
+    version conjugate), the Fermat exponent is p - 2, the hard part's
+    digits and selectors give (p^4 - p^2 + 1)/r, and the kernel's block
+    and table sizes fit a block's shared memory."""
+    from kzg_tpu_torch.curve import pairing_kernels as pk
+    from kzg_tpu_torch.field.constants import BLS_X, FR_MODULUS
+
+    tower = source("tower.cuh")
+    m = re.search(r"kMillerBits = 0x([0-9a-f]+)ull;", tower)
+    assert int(m.group(1), 16) == -BLS_X and BLS_X < 0
+    assert f"kMillerTop = {(-BLS_X).bit_length() - 1};" in tower
+    assert pk.MILLER_BITS == format(-BLS_X, "b")[1:]
+    assert "f12_conj(f, f);" in tower
+    assert words_after(tower, "constexpr uint32_t E[NF]", 12) == \
+        fp.SPEC.modulus - 2
+    assert f"for (int i = {(fp.SPEC.modulus - 2).bit_length() - 2}; " \
+        "i >= 0; i--)" in tower
+    p = fp.SPEC.modulus
+    assert sum(d * p ** i for i, d in enumerate(pk.HARD_DIGITS)) == \
+        (p ** 4 - p ** 2 + 1) // FR_MODULUS
+    nb = len(pk.HARD_SELECTORS)
+    for i, d in enumerate(pk.HARD_DIGITS):
+        assert sum(((s >> i) & 1) << (nb - 1 - j)
+                   for j, s in enumerate(pk.HARD_SELECTORS)) == d
+    kernels = source("pairing_kernels.cu")
+    assert "constexpr int kSmem = kThreads * kzg::T2W * 4;" in kernels
+    assert "constexpr int T2W = 8 * P2W;" in tower
+    assert "constexpr int P2W = 6 * NF;" in tower
+    threads = int(re.search(r"constexpr int kThreads = (\d+);",
+                            kernels).group(1))
+    assert threads * 8 * 6 * 12 * 4 <= 232448
+
+
+def test_frobenius_gammas_host_derivation():
+    """The gammas passed to K-c, xi^(e (p - 1)/6) for slot e = j + 2i,
+    equal the coefficient of basis^p in the exact tower
+    (curve/pairing.py), as kzg_tpu derives them; each of p^2 and p^3 is
+    p's map applied again."""
+    from kzg_tpu_torch.curve import pairing as hp
+    from kzg_tpu_torch.curve import pairing_kernels as pk
+
+    p = fp.SPEC.modulus
+    z = hp.F2.ZERO
+    for j in range(2):
+        for i in range(3):
+            slots = [[z] * 3, [z] * 3]
+            slots[j][i] = hp.F2.ONE
+            b = hp.F12(hp.F6(*slots[0]), hp.F6(*slots[1]))
+            bp = b.pow(p)
+            g = (bp.c0, bp.c1)[j]
+            g = (g.c0, g.c1, g.c2)[i]
+            assert (g.a, g.b) == pk.frobenius_gamma_ints(1)[3 * j + i]
+            for k in (2, 3):      # gamma_k = gamma_{k-1}^p gamma_1
+                prev = hp.F2(*pk.frobenius_gamma_ints(k - 1)[3 * j + i])
+                frob = prev.conj() * hp.F2(*pk.frobenius_gamma_ints(1)
+                                           [3 * j + i])
+                assert (frob.a, frob.b) == \
+                    pk.frobenius_gamma_ints(k)[3 * j + i]

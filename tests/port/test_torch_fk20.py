@@ -73,7 +73,7 @@ def test_fk20_multi_da_matches_reference(l):
 @pytest.mark.parametrize("l", [1, 2, 4])
 def test_fk20_multi_matches_oracle(l):
     fs = FFTSettings(5, CPU)
-    s1, _ = generate_testing_setup(SECRET, 17, CPU)
+    s1, _, _, _ = generate_testing_setup(SECRET, 17, CPU)
     fkm = FK20MultiSettings(KZGSettings(fs, s1), N2, l)
     got = g1.to_affine_ints(fkm.fk20_multi(fr.from_int(COEFFS, CPU)))
     assert got == coset_proofs_oracle(COEFFS, N, l, SECRET, rbo=False)
@@ -86,7 +86,7 @@ def test_setups_match_reference(kzg_env):
     want = g1.to_affine_ints(ref_to_port(ks_ref.secret_g1))
     assert affine("crs", SECRET, CRS_SIZE) == want
     fs = FFTSettings(5, CPU)
-    s1, aff = generate_testing_setup(SECRET, 17, CPU)
+    s1, _, aff, _ = generate_testing_setup(SECRET, 17, CPU)
     assert aff == want
     assert g1.to_affine_ints(s1) == want
     ks = insecure_kzg_settings_device(SECRET, 17, fs)
@@ -109,7 +109,7 @@ def test_toeplitz_coeffs_and_crs_indices_match_reference(l):
 
 def test_settings_check_their_arguments():
     fs = FFTSettings(5, CPU)
-    s1, _ = generate_testing_setup(SECRET, 17, CPU)
+    s1, _, _, _ = generate_testing_setup(SECRET, 17, CPU)
     ks = KZGSettings(fs, s1)
     for n2, l in ((12, 2), (64, 2), (16, 3), (16, 8)):
         with pytest.raises(ValueError):

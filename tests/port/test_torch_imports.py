@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of kzg_tpu_torch loads
-neither JAX nor the JAX package, and builds no kernel."""
+"""The port stands alone: importing every module of kzg_tpu_torch (the
+verification modules of curve/ too) loads neither JAX nor the JAX package,
+and builds no kernel and no host library."""
 
 import json
 import os
@@ -21,7 +22,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "kzg_tpu."))
              or m == "kzg_tpu")
 print(json.dumps({"modules": mods, "loaded": bad,
-                  "built": build.library.cache_info().currsize}))
+                  "built": build.library.cache_info().currsize,
+                  "host_built": build.host_library.cache_info().currsize}))
 """
 
 
@@ -38,7 +40,13 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.ntt.das", "kzg_tpu_torch.fk20.multi",
         "kzg_tpu_torch.poly", "kzg_tpu_torch.das.zero_poly",
         "kzg_tpu_torch.das.recovery", "kzg_tpu_torch.das.legacy",
-        "kzg_tpu_torch.fk20.single", "kzg_tpu_torch.convert"}
-    assert len(seen["modules"]) >= 26
+        "kzg_tpu_torch.fk20.single", "kzg_tpu_torch.convert",
+        "kzg_tpu_torch.curve.fp2", "kzg_tpu_torch.curve.g2",
+        "kzg_tpu_torch.curve.pairing", "kzg_tpu_torch.curve.pairing_native",
+        "kzg_tpu_torch.curve.serialization", "kzg_tpu_torch.curve.tower",
+        "kzg_tpu_torch.curve.pairing_device",
+        "kzg_tpu_torch.curve.pairing_kernels"}
+    assert len(seen["modules"]) >= 34
     assert seen["loaded"] == []
     assert seen["built"] == 0
+    assert seen["host_built"] == 0
