@@ -85,19 +85,27 @@ Phases; any failure raises and the script exits non-zero with no result:
      commitment and 128 proofs compressed to 48-byte points and
      decompressed on the card (decompress_g1_batch: the square roots on
      fr_pow, the subgroup check on K3), which must give the points sent;
-     one check_proof_multi_batch over all 128 cells (cell j: the coset
+     one check_proof_multi_batch over all 128 cells (in the bilinear form
+     e(I - C - [x^l]pi, G2) e(pi, [s^l]_2) == 1; cell j: the coset
      w^j <w_64>, its values in the coset's natural order) must be all
-     True, its launches counted as a path (K-a, K-b and K-c once each);
-     with cell 7 given cell 8's proof and one value of cell 100 changed,
-     exactly cells 7 and 100 False, and check_proof_multi on the host
-     pairing for four cells agreeing; K-a (g2_scalar_mul), K-b
-     (pairing_miller) and K-c (pairing_final_exp) against their plain
-     versions bit for bit at the path's first 5 lanes, with a G2 point at
-     infinity (K-a), a1 at infinity, b2 flagged at infinity and both in
-     one lane (K-b, and K-c on their Miller values);
+     True, its launches counted as a path (K3 at least once, the lines of
+     G2 and [s^l]_2 once, K-b's evaluation and K-c once each, K-a never,
+     fr_add_sub at most twice: no G2 sub), and a second call must not
+     recompute the cached lines; with cell 7 given cell 8's proof and one
+     value of cell 100 changed, exactly cells 7 and 100 False, and
+     check_proof_multi on the host pairing for four cells agreeing; K-a
+     (g2_scalar_mul, on no path), K-b's lines (pairing_lines) and
+     evaluation (pairing_miller_eval) and K-c (pairing_final_exp) against
+     their plain versions bit for bit: the lines of G2 and [s^64]_2 and
+     of 5 points of their own lanes (one the encoding of infinity); the
+     path's first 5 lanes with a G2 point at infinity (K-a), pi at
+     infinity, a1 at infinity, [s^l]_2 flagged at infinity and both in one
+     lane (K-b on the fixed lines and on the lanes' own, and K-c on their
+     Miller values);
   9. times on the card after warm-up: whole calls with CUDA events,
      each kernel's device time (its output first held bit for bit against
-     its plain version at the timed shape), the old routes beside the new
+     its plain version at the timed shape; the plain version's time is
+     that one run's, with no warm-up), the old routes beside the new
      ones in turns (K3 and K4 against the fixed-base product and the dense
      stage; the previous commit route, window sums on a g1_add tree and a
      Horner loop of 315 one-lane launches, against the fixed-base commit;
@@ -116,9 +124,11 @@ Phases; any failure raises and the script exits non-zero with no result:
      and the producer path on the per-level extension route against it
      on fr_das_block; fr_signed_windows' and butterfly's rows at each of
      their shapes; the batched check of 128 cells (ms, ms a cell, and its
-     trace) and the rows of K-a, K-b and K-c at its 128 lanes, each with
-     its bound and its latency bound (the longest chain of Fp products
-     on this run's data times the product's measured latency).
+     trace) and the rows of K3 and K-a, K-b's lines (the two fixed G2
+     points), K-b's evaluation and K-c at its 128 lanes, a warp a lane,
+     each with its bound and its latency bound (the longest thread's
+     chain of Fp product latencies on this run's data times the product's
+     measured latency).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -159,13 +169,15 @@ EXTENSION_KERNELS = ("fr_das_block",)
 STAGE_DAS_KERNELS = ("fr_dif_stage", "fr_butterfly_stage", "fr_scale")
 # and the recovery's (the reconstruction path)
 RECOVERY_KERNELS = ("fr_zero_poly_leaves", "fr_batch_inv")
-# and the batched sample check's (the verification path): the coset
-# inverse FFTs, x^-1 and x^l, the interpolation commitments, a1 = I - C,
-# [x^l]_2 (K-a), the Miller loops (K-b) and the final exponentiation (K-c)
+# and the batched sample check's (the verification path, in its bilinear
+# form): the coset inverse FFTs, x^-1 and x^l, the interpolation
+# commitments, [x^l]pi (K3), a1 = I - C - [x^l]pi, the lines of G2 and
+# [s^l]_2 (K-b's lines part, once a settings object), K-b's evaluation
+# and the final exponentiation (K-c)
 VERIFY_KERNELS = ("fr_fft_block", "fr_batch_inv", "fr_pow",
                   "fr_signed_windows", "g1_fixed_base_mul", "g1_sum",
-                  "g1_add", "g2_scalar_mul", "pairing_miller",
-                  "pairing_final_exp")
+                  "g1_add", "g1_scalar_mul", "pairing_lines",
+                  "pairing_miller_eval", "pairing_final_exp")
 
 
 def log(*a):
@@ -186,6 +198,21 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def once_ms(fn):
+    """fn's output and the time of that one call (CUDA events, no
+    warm-up): the plain versions, which run for seconds, once a row."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def device_events(fn) -> list:
@@ -390,7 +417,8 @@ def main() -> int:
     from kzg_tpu_torch.curve import g1
     from kzg_tpu_torch.curve import kernels as gk
     from kzg_tpu_torch.curve.fft_g1 import reverse_bit_order_g1
-    from kzg_tpu_torch.curve import g2, msm, pairing_device, serialization
+    from kzg_tpu_torch.curve import fp2, g2, msm, pairing_device
+    from kzg_tpu_torch.curve import serialization
     from kzg_tpu_torch.curve import pairing_kernels as pk
     from kzg_tpu_torch.curve.msm import tree_reduce
     from kzg_tpu_torch.curve.weierstrass import JacobianPoint
@@ -1405,10 +1433,18 @@ def main() -> int:
     for name in VERIFY_KERNELS:
         check(verify_launches[name] > 0,
               f"{name} was not launched on the verification path")
-    for name in ("g2_scalar_mul", "pairing_miller", "pairing_final_exp"):
-        check(verify_launches[name] == 1,
+    # the bilinear form: no K-a and no G2 sub; the lines of G2 and [s^l]_2
+    # once (this first call fills the settings' cache), K-b's evaluation
+    # and K-c once; fr_add_sub only for the two G1 negations of a1
+    for name, want in (("g2_scalar_mul", 0), ("pairing_lines", 1),
+                       ("pairing_miller_eval", 1),
+                       ("pairing_final_exp", 1)):
+        check(verify_launches[name] == want,
               f"the verification path launched {name} "
-              f"{verify_launches[name]} times")
+              f"{verify_launches[name]} times, not {want}")
+    check(verify_launches["fr_add_sub"] <= 2,
+          f"the verification path launched fr_add_sub "
+          f"{verify_launches['fr_add_sub']} times (the G2 sub is gone)")
     check(verdicts == [True] * n_cells,
           f"cells failed the batched check: "
           f"{[j for j, v in enumerate(verdicts) if not v]}")
@@ -1450,17 +1486,39 @@ def main() -> int:
         setattr(mod, name, wrapped)
         return mod, name, orig
 
-    saved = [capture(g2, "g2_scalar_mul"),
-             capture(pairing_device, "pairing_miller"),
+    saved = [capture(g1, "g1_scalar_mul"),
+             capture(pairing_device, "pairing_miller_eval"),
              capture(pairing_device, "pairing_final_exp")]
+    pk.reset_launches()
     try:
         ks.check_proof_multi_batch(commit_v, proofs_v, xs_v, ys_v)
     finally:
         for mod, name, orig in saved:
             setattr(mod, name, orig)
+    check(pk.LAUNCHES["pairing_lines"] == 0,
+          "a second check recomputed the cached lines")
+    # K-a's inputs as the path before the bilinear form gave them: G2 and
+    # the digits of x_j^64
+    ka_in = (g2.generator((n_cells,), dev),
+             fr.scalar_windows_signed(fr.pow_static(
+                 fr.from_int(xs_v, dev), l)))
+    # the lines part on its path inputs (G2 and [s^64]_2) and on 5 lanes
+    # of a lane's own G2 points (pairings_product_is_one's form), one of
+    # them the encoding of infinity
+    g2_pts = [host_ec.g2_generator(), ks._s2(l)]
+    lines_in = (fp2.from_int([q[0] for q in g2_pts], dev),
+                fp2.from_int([q[1] for q in g2_pts], dev))
+    own_pts = [host_ec.g2_mul(host_ec.g2_generator(), 3 + 1000 * i)
+               for i in range(4)] + [None]
+    own_in = (fp2.from_int([(0, 0) if q is None else q[0] for q in own_pts],
+                           dev),
+              fp2.from_int([(0, 0) if q is None else q[1] for q in own_pts],
+                           dev))
+    own_lines = pk.pairing_lines(*own_in)
 
     def lanes(args, k):
-        """A copy of the first k lanes of a kernel's arguments."""
+        """A copy of the first k lanes of a kernel's arguments (lines held
+        for all lanes stay one set)."""
         out = []
         for a in args:
             if isinstance(a, JacobianPoint):
@@ -1470,42 +1528,63 @@ def main() -> int:
         return out
 
     # The path's first 5 lanes, with the branches a point at infinity
-    # takes (I - C is at infinity for a cell whose interpolation
-    # polynomial is the blob's): K-a's lane 1 gets Z = 0; K-b's lane 2
-    # gets a1 at infinity in g1_add's all-zero encoding, lane 3 a b2
-    # flagged at infinity, lane 4 both, so that its Miller value is one;
-    # K-c takes the plain Miller values of those lanes.
-    edge_a = lanes(captured["g2_scalar_mul"], 5)
+    # takes (I - C - [x^l]pi is at infinity for a cell whose proof is
+    # [x^-l](I - C)): K-a's lane 1 gets Z = 0; K-b's lane 1 gets pi at
+    # infinity, lane 2 a1 at infinity in g1_add's all-zero encoding, lane
+    # 3 [s^l]_2 flagged at infinity, lane 4 both a1 at infinity and the
+    # flag, so that its Miller value is one; K-c takes the plain Miller
+    # values of those lanes. The same lanes again on their own G2 points'
+    # lines (lane 4's at infinity, flagged).
+    edge_a = lanes(ka_in, 5)
     edge_a[0].z[1] = 0
-    edge_b = lanes(captured["pairing_miller"], 5)
+    edge_b = lanes(captured["pairing_miller_eval"], 5)
+    for c in edge_b[3]:
+        c[1] = 0
     for c in edge_b[0]:
         c[2] = 0
         c[4] = 0
-    edge_b[7][3] = True
-    edge_b[7][4] = True
-    edge_c = [pk.pairing_miller_plain(*edge_b)]
+    edge_b[5][3] = True
+    edge_b[5][4] = True
+    edge_own = [edge_b[0], own_lines, edge_b[2], edge_b[3], own_lines,
+                edge_b[5]]
+    edge_c = [pk.pairing_miller_eval_plain(*edge_b)]
+    edge_c_own = [pk.pairing_miller_eval_plain(*edge_own)]
     twins = {"g2_scalar_mul": (pk.g2_scalar_mul, pk.g2_scalar_mul_plain,
-                               edge_a),
-             "pairing_miller": (pk.pairing_miller, pk.pairing_miller_plain,
-                                edge_b),
+                               [edge_a]),
+             "pairing_lines": (pk.pairing_lines, pk.pairing_lines_plain,
+                               [lines_in, own_in]),
+             "pairing_miller_eval": (pk.pairing_miller_eval,
+                                     pk.pairing_miller_eval_plain,
+                                     [edge_b, edge_own]),
              "pairing_final_exp": (pk.pairing_final_exp,
-                                   pk.pairing_final_exp_plain, edge_c)}
-    for name, (kern, plain, a) in twins.items():
-        got, want = kern(*a), plain(*a)
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
-        check(same(got, want),
-              f"{name} differs from its plain version at 5 lanes with "
-              f"points at infinity")
-        checks[name] = max_abs_err(got, want)
+                                   pk.pairing_final_exp_plain,
+                                   [edge_c, edge_c_own])}
+    for name, (kern, plain, arg_sets) in twins.items():
+        for a in arg_sets:
+            got, want = kern(*a), plain(*a)
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            check(same(got, want),
+                  f"{name} differs from its plain version at 5 lanes with "
+                  f"points at infinity")
+            checks[name] = max(checks.get(name, 0), max_abs_err(got, want))
+    # pairing_miller (lines, then evaluation) on the lanes' own points
+    check(same(pk.pairing_miller(edge_b[0], *own_in, edge_b[5], edge_b[3],
+                                 *own_in, edge_b[5]),
+               pk.pairing_miller_plain(edge_b[0], *own_in, edge_b[5],
+                                       edge_b[3], *own_in, edge_b[5])),
+          "pairing_miller differs from its plain version on own lines")
     inf_a = g2.to_affine(JacobianPoint(*(c[1:2] for c in
                                          pk.g2_scalar_mul(*edge_a))))[2]
     check(bool(inf_a.all()), "K-a of a point at infinity is not infinity")
-    check(bool(pk.pairing_final_exp(edge_c[0])[1][4]),
-          "the lane with both pairs at infinity is not one")
-    log("K-a, K-b and K-c equal their plain versions bit for bit at the "
-        "path's first 5 lanes, with a G2 point at infinity (K-a), a1 at "
-        "infinity, b2 flagged at infinity and both (K-b, K-c)")
+    for f_ in (edge_c[0], edge_c_own[0]):
+        check(bool(pk.pairing_final_exp(f_)[1][4]),
+              "the lane with both pairs at infinity is not one")
+    log("K-a, K-b (lines and evaluation) and K-c equal their plain versions "
+        "bit for bit at the path's first 5 lanes, with a G2 point at "
+        "infinity (K-a), pi at infinity, a1 at infinity, [s^l]_2 flagged at "
+        "infinity and both (K-b, K-c), on the fixed lines and on the lanes' "
+        "own; the lines of G2 and [s^64]_2 and of 5 own points")
 
     # ---- 9. times ----
     def timed(fn, reps):
@@ -1608,14 +1687,14 @@ def main() -> int:
     kernels = []
 
     def record(name, match, source, replaces, fn, plain_fn, nbytes,
-               products, err, reps=5, plain_reps=1, chain=None, lat=None,
-               per_call=1, shape=None):
+               products, err, reps=5, chain=None, lat=None, per_call=1,
+               shape=None):
         """A kernel's row of the kernels line, timed at the shape given;
         a second shape of a kernel already recorded goes into its row's
         `shapes`."""
         # the kernel against its plain version at the timed shape, the
         # plain version first: the Fr stages work in place
-        ref = plain_fn()
+        ref, pms = once_ms(plain_fn)
         out = fn()
         check(same(out, ref),
               f"{name} differs from its plain version at the timed shape")
@@ -1627,7 +1706,6 @@ def main() -> int:
         call2_ms = timed(fn, reps)
         # a call of `per_call` launches: its device time is theirs
         ms = call2_ms if dev_ms is None else dev_ms * per_call
-        pms = timed(plain_fn, plain_reps)
         b, by = bound_ms(nbytes, products)
         by_path = {p: c[name] for p, c in path_launches.items()}
         row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
@@ -1641,8 +1719,10 @@ def main() -> int:
                 "latency_ms": None if chain is None else
                 chain * (lat or lat_ms), "shape": shape})
         else:
-            first.setdefault("shapes", []).append({"shape": shape, **row,
-                                                   "call_ms": call2_ms})
+            first.setdefault("shapes", []).append({
+                "shape": shape, **row, "call_ms": call2_ms,
+                "latency_ms": None if chain is None else
+                chain * (lat or lat_ms)})
         timing[name if first is None else f"{name} {shape}"] = {
             "device_ms": dev_ms, "traced_launches": caught, "reps": reps,
             "launches_a_call": per_call, "call_ms": [call_ms, call2_ms],
@@ -1877,7 +1957,7 @@ def main() -> int:
            "kzg_tpu_torch/csrc/g1_point_kernels.cu",
            "kzg_tpu/curve/pallas_g1.py:394",
            lambda: gk.g1_double(P1), lambda: gk.g1_double_plain(P1),
-           6 * 48, 7 * 300, checks["g1_double"], reps=20, plain_reps=5,
+           6 * 48, 7 * 300, checks["g1_double"], reps=20,
            chain=7)
 
     def sum_chain(n_pts: int) -> int:
@@ -2207,47 +2287,88 @@ def main() -> int:
     log(f"[{card}] check_proof_multi_batch ({n_cells} cells): "
         f"{verify_ms:.3f} ms = {verify_ms / n_cells:.4f} ms a cell")
     fp_words = 2 * 12 * 12 + 12       # word multiply-adds of an Fp product
-    inv_chain = 380 + bin(fp.SPEC.modulus - 2).count("1") - 1
-    f12_inv_chain = 109 + inv_chain
-    dig_a = captured["g2_scalar_mul"][1]
+    # K-c's one inverse: its products on one thread; the Fp inverse inside
+    # is a binary extended GCD (shifts and subtractions, uncounted) and one
+    # product
+    f12_inv_chain = 109 + 1
+    src_p = "kzg_tpu_torch/csrc/pairing_kernels.cu"
+    # K3 on the path: [x_j^64]pi_j at its 128 lanes
+    k3v = captured["g1_scalar_mul"]
+    nz3 = int((k3v[1] != 0).sum())
+    record("g1_scalar_mul", "scalar_mul_kernel",
+           "kzg_tpu_torch/csrc/g1_kernels.cu",
+           "kzg_tpu/curve/pallas_g1.py:473",
+           lambda: gk.g1_scalar_mul(*k3v),
+           lambda: gk.g1_scalar_mul_plain(*k3v),
+           n_cells * (6 * 48 + 64 * 4),
+           (n_cells * (3 + 7 * 12 + 64 * 4 * 8 + 3) + 12 * nz3) * 300,
+           checks["g1_scalar_mul"], reps=3,
+           chain=3 + 84 + ladder_chain(k3v[1], False) + 3,
+           shape=f"{n_cells} lanes, [x^64]pi (verification)")
+    # K-a, on no path: [x_j^64]_2 at the 128 lanes the path gave it before
+    # the bilinear form
+    dig_a = ka_in[1]
     nz = dig_a != 0
     top = torch.where(nz, torch.arange(dig_a.shape[-1], device=dev),
                       -1).max(-1).values.clamp(min=0)
     chains_a = 8 + 7 * 36 + top * 4 * 22 + nz.sum(-1) * 36 + 8
-    record("g2_scalar_mul", "g2_scalar_mul_kernel",
-           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+    record("g2_scalar_mul", "g2_scalar_mul_kernel", src_p,
            "kzg_tpu/kzg/settings.py:60-66",
-           lambda: tuple(pk.g2_scalar_mul(*captured["g2_scalar_mul"])),
-           lambda: tuple(pk.g2_scalar_mul_plain(
-               *captured["g2_scalar_mul"])),
+           lambda: tuple(pk.g2_scalar_mul(*ka_in)),
+           lambda: tuple(pk.g2_scalar_mul_plain(*ka_in)),
            n_cells * (288 + 256 + 288), int(chains_a.sum()) * fp_words,
            checks["g2_scalar_mul"], reps=3, chain=int(chains_a.max()),
            shape=f"{n_cells} lanes")
-    mill = captured["pairing_miller"]
-    active = 2 - (fp.is_zero(mill[0].z) | mill[3].bool()).long() \
-        - (fp.is_zero(mill[4].z) | mill[7].bool()).long()
-    chains_b = 2 * (inv_chain + 4) + 63 * 36 + active * (
-        63 * (27 + 43) + 5 * (35 + 43))
-    record("pairing_miller", "pairing_miller_kernel",
-           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+
+    def rounds(k, g):
+        """Product latencies of k independent products on g threads."""
+        return -(-k // g)
+
+    warp = 32                # threads a lane of K-b's evaluation and K-c
+
+    # K-b's lines part: G2 and [s^64]_2, one thread a point: 27 products a
+    # doubling, 35 an addition
+    lines_chain = 63 * 27 + 5 * 35
+    record("pairing_lines", "pairing_lines_kernel", src_p,
            "kzg_tpu/curve/pairing_device.py:97-205",
-           lambda: pk.pairing_miller(*mill),
-           lambda: pk.pairing_miller_plain(*mill),
-           n_cells * (2 * 3 * 48 + 2 * 2 * 96 + 2 * 4 + 576),
-           int(chains_b.sum()) * fp_words, checks["pairing_miller"], reps=3,
-           chain=int(chains_b.max()), shape=f"{n_cells} lanes")
-    sel = pk.HARD_SELECTORS
-    chain_c = (f12_inv_chain + 54 + 18 + 54 + 3 * 18 + 15 * 54
-               + len(sel) * 36 + sum(1 for v in sel if v) * 54)
+           lambda: pk.pairing_lines(*lines_in),
+           lambda: pk.pairing_lines_plain(*lines_in),
+           2 * 2 * 96 + 2 * pk.N_LINES * 288, 2 * lines_chain * fp_words,
+           checks["pairing_lines"], reps=3, chain=lines_chain,
+           shape="2 points (G2, [s^64]_2)")
+    # K-b's evaluation at the path's 128 lanes on the fixed lines: Z^3, X Z
+    # (6 products), then a squaring of f (36) and the lines at P (12) a
+    # step, a sparse product (39) a line of an active pair; the longest
+    # thread does ceil(k / threads) of each tier's k products
+    mill = captured["pairing_miller_eval"]
+    active = 2 - (fp.is_zero(mill[0].z) | mill[2].bool()).long() \
+        - (fp.is_zero(mill[3].z) | mill[5].bool()).long()
+    eval_products = int((6 + 63 * 36 + 68 * 12 + 68 * 39 * active).sum())
+    amax = int(active.max())
+    record("pairing_miller_eval", "pairing_miller_eval_kernel", src_p,
+           "kzg_tpu/curve/pairing_device.py:97-205",
+           lambda: pk.pairing_miller_eval(*mill),
+           lambda: pk.pairing_miller_eval_plain(*mill),
+           n_cells * (2 * 3 * 48 + 2 * 4 + 576) + 2 * pk.N_LINES * 288,
+           eval_products * fp_words, checks["pairing_miller_eval"], reps=3,
+           chain=2 + 63 * (rounds(36, warp) + rounds(12, warp))
+           + 5 * rounds(12, warp) + 68 * amax * rounds(39, warp),
+           shape=f"{n_cells} lanes, a warp a lane")
+    # K-c: the inverse on one thread (f12_inv), then Fp12 products (54),
+    # Frobenius maps (18) and the hard part's 314 cyclotomic squares (18)
+    # and 52 products on the group
     fexp_in = captured["pairing_final_exp"][0]
-    record("pairing_final_exp", "pairing_final_exp_kernel",
-           "kzg_tpu_torch/csrc/pairing_kernels.cu",
+    fexp_products = (f12_inv_chain + 2 * 54 + 18 + 314 * 18 + 52 * 54
+                     + 2 * 18)
+    record("pairing_final_exp", "pairing_final_exp_kernel", src_p,
            "kzg_tpu/curve/pairing_device.py:252-312",
            lambda: pk.pairing_final_exp(fexp_in),
            lambda: pk.pairing_final_exp_plain(fexp_in),
-           n_cells * (576 + 576 + 4) + 3 * 576 + 4 * len(sel),
-           n_cells * chain_c * fp_words, checks["pairing_final_exp"],
-           reps=3, chain=chain_c, shape=f"{n_cells} lanes")
+           n_cells * (576 + 576 + 4) + 3 * 576,
+           n_cells * fexp_products * fp_words, checks["pairing_final_exp"],
+           reps=3, chain=f12_inv_chain + 2 * rounds(54, warp)
+           + rounds(18, warp) + 316 * rounds(18, warp)
+           + 52 * rounds(54, warp), shape=f"{n_cells} lanes, a warp a lane")
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,

@@ -71,8 +71,9 @@ SIGNATURES = {
     },
     "pairing_kernels": {
         "kzg_g2_scalar_mul": (_P,) * 7 + (_I, _I, _P),
-        "kzg_pairing_miller": (_P,) * 13 + (_I, _P),
-        "kzg_pairing_final_exp": (_P,) * 5 + (_I, _I, _P),
+        "kzg_pairing_lines": (_P,) * 3 + (_I, _P),
+        "kzg_pairing_miller_eval": (_P,) * 11 + (_I, _I, _P),
+        "kzg_pairing_final_exp": (_P,) * 4 + (_I, _P),
     },
 }
 ROOT = os.path.dirname(os.path.dirname(CSRC))

@@ -1,7 +1,8 @@
-// The pairing kernels K-a (g2_scalar_mul), K-b (pairing_miller) and K-c
-// (pairing_final_exp), built by nvcc for sm_90a into a shared library
-// with a plain C interface (kzg_tpu_torch/build.py). Their lane bodies
-// and the Fp2/Fp6/Fp12 tower are in tower.cuh.
+// The pairing kernels K-a (g2_scalar_mul), K-b (pairing_lines, then
+// pairing_miller_eval, the lines' evaluation) and K-c (pairing_final_exp),
+// built by nvcc for sm_90a into a shared library with a plain C interface
+// (kzg_tpu_torch/build.py). Their lane bodies and the Fp2/Fp6/Fp12 tower
+// are in tower.cuh.
 //
 // None replaces a Pallas kernel: the JAX package's device pairing is
 // plain jnp (kzg_tpu/curve/tower.py, pairing_device.py), where every
@@ -10,17 +11,25 @@
 // of kzg_tpu/curve/pairing_device.py:97-205, K-c its final exponentiation
 // (:252-312).
 //
-// Bound on this card: a lane is one dependent chain of Fp products, some
-// 12,000 (K-b: 63 squarings of f, 126 doublings and 10 additions on the
-// twist with their sparse line products, and two Fermat inverses), some
-// 36,000 (K-c: the hard part's 381 squarings and ~360 products of Fp12)
-// and some 4,000 (K-a: 63 x 4 doublings and up to 64 additions over Fp2);
-// at the verification path's 128 lanes each launch is bound by that
-// chain's latency, not by the multiply rate. Design: one thread a lane
-// (a warp a block); K-a keeps its [1..8]Q table in dynamic shared memory
-// interleaved across the block, as K3 does; the tower's products and the
-// curve steps are out-of-line functions on values in local memory, which
-// bounds code size and compile time.
+// Bound on this card: each lane is a dependent chain of Fp products (a
+// product's latency is about 1.1 us); at the verification path's 128
+// lanes the multiply rate plays no part. Design:
+// - K-a and the lines: one thread a lane (a warp a block); K-a keeps its
+//   [1..8]Q table in dynamic shared memory interleaved across the block,
+//   as K3 does. The lines of a G2 point depend on nothing else, so the
+//   batched check computes those of its two fixed G2 points once and
+//   every lane of the evaluation reads them (stride 0).
+// - K-b's evaluation and K-c: a warp a lane (kBlock / kGroup lanes a
+//   block), its Fp12 values in shared memory, each Fp12 operation's
+//   independent Fp products spread over the warp (tower.cuh's group
+//   layer): an Fp12 product is 2 product latencies, a cyclotomic square
+//   one (a warp was faster than 8 or 16 threads a lane, PERF.md). K-c's
+//   hard part is the x-chain: 314 cyclotomic squares and 52 products of
+//   Fp12, no table; its one inverse (the easy part's) takes the Fp
+//   inverse by the binary extended Euclid algorithm, not a 608-product
+//   Fermat chain.
+//   The lines are evaluated at P scaled by Z^3 (an Fp factor the final
+//   exponentiation removes), so K-b takes no inverse.
 #include <cuda_runtime.h>
 
 #include "tower.cuh"
@@ -29,11 +38,15 @@ namespace {
 
 constexpr int kThreads = 32;
 constexpr int kSmem = kThreads * kzg::T2W * 4;  // 73,728 bytes
-using kzg::Fp12;
+constexpr int kBlock = 64;                     // K-b's evaluation and K-c
 using kzg::Fp2;
 using kzg::NF;
 
 constexpr int kF12Words = 12 * NF;
+// a lane's shared words besides its warp's scratch: f, the two evaluated
+// lines and Z^3, X Z, Y of both pairs (K-b); four Fp12 (K-c)
+constexpr int kMillerLane = 2 * kF12Words + 6 * NF;
+constexpr int kFexpLane = 4 * kF12Words;
 
 __device__ __forceinline__ void load_f2(Fp2& r, const int32_t* p) {
   kzg::load<NF>(r.c0, p);
@@ -45,14 +58,21 @@ __device__ __forceinline__ void store_f2(int32_t* p, const Fp2& a) {
   kzg::store<NF>(p + NF, a.c1);
 }
 
-__device__ __forceinline__ void load_f12(Fp12& r, const int32_t* p) {
-#pragma unroll 1
-  for (int s = 0; s < 6; s++) load_f2(r.c[s / 3].c[s % 3], p + 2 * NF * s);
-}
+constexpr int kLanesABlock = kBlock / kzg::kGroup;
 
-__device__ __forceinline__ void store_f12(int32_t* p, const Fp12& a) {
-#pragma unroll 1
-  for (int s = 0; s < 6; s++) store_f2(p + 2 * NF * s, a.c[s / 3].c[s % 3]);
+// Lane (blockIdx.x * lanes a block + warp) and its warp; the lane's
+// `words` of dynamic shared memory, then the warp's scratch.
+__device__ __forceinline__ kzg::Grp make_group(uint32_t* smem, int words,
+                                               uint32_t** own, int* lane) {
+  const int local = threadIdx.x / kzg::kGroup;
+  *lane = blockIdx.x * kLanesABlock + local;
+  kzg::Grp g;
+  g.rank = threadIdx.x % kzg::kGroup;
+  *own = smem + local * (words + kzg::kGrpWords);
+  g.op = *own + words;
+  g.pr = g.op + 18 * 48;
+  g.tt = g.pr + 54 * NF;
+  return g;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -86,59 +106,90 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    pairing_miller_kernel(int32_t* __restrict__ out,
-                          const int32_t* __restrict__ a1x,
-                          const int32_t* __restrict__ a1y,
-                          const int32_t* __restrict__ a1z,
-                          const int32_t* __restrict__ a2x,
-                          const int32_t* __restrict__ a2y,
-                          const int32_t* __restrict__ a2inf,
-                          const int32_t* __restrict__ b1x,
-                          const int32_t* __restrict__ b1y,
-                          const int32_t* __restrict__ b1z,
-                          const int32_t* __restrict__ b2x,
-                          const int32_t* __restrict__ b2y,
-                          const int32_t* __restrict__ b2inf, int n) {
+    pairing_lines_kernel(int32_t* __restrict__ out,
+                         const int32_t* __restrict__ qx,
+                         const int32_t* __restrict__ qy, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int32_t* g1[2][3] = {{a1x, a1y, a1z}, {b1x, b1y, b1z}};
-  const int32_t* g2[2][2] = {{a2x, a2y}, {b2x, b2y}};
+  Fp2 x, y;
+  load_f2(x, qx + (size_t)i * 2 * NF);
+  load_f2(y, qy + (size_t)i * 2 * NF);
+  kzg::lines_lane(out + (size_t)i * kzg::kLines * kzg::kLineWords, x, y);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    pairing_miller_eval_kernel(int32_t* __restrict__ out,
+                               const int32_t* __restrict__ a1x,
+                               const int32_t* __restrict__ a1y,
+                               const int32_t* __restrict__ a1z,
+                               const int32_t* __restrict__ a_lines,
+                               const int32_t* __restrict__ a2inf,
+                               const int32_t* __restrict__ b1x,
+                               const int32_t* __restrict__ b1y,
+                               const int32_t* __restrict__ b1z,
+                               const int32_t* __restrict__ b_lines,
+                               const int32_t* __restrict__ b2inf, int bcast,
+                               int n) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* s;
+  int i;
+  const kzg::Grp g = make_group(smem, kMillerLane, &s, &i);
+  if (i >= n) return;
+  const size_t o = (size_t)i * NF;
+  const size_t lw = (size_t)kzg::kLines * kzg::kLineWords;
+  const int32_t* X[2] = {a1x + o, b1x + o};
+  const int32_t* Y[2] = {a1y + o, b1y + o};
+  const int32_t* Z[2] = {a1z + o, b1z + o};
+  const int32_t* lines[2] = {a_lines + ((bcast & 1) ? 0 : i * lw),
+                             b_lines + ((bcast & 2) ? 0 : i * lw)};
   const int32_t* inf[2] = {a2inf, b2inf};
-  uint32_t xp[2][NF], yp[2][NF], z[NF];
-  Fp2 xq[2], yq[2];
   bool skip[2];
 #pragma unroll 1
   for (int k = 0; k < 2; k++) {
-    const size_t o1 = (size_t)i * NF, o2 = (size_t)i * 2 * NF;
-    kzg::load<NF>(z, g1[k][2] + o1);
+    uint32_t z[NF];
+    kzg::load<NF>(z, Z[k]);
     skip[k] = kzg::is_zero<NF>(z) || inf[k][i] != 0;
-    kzg::g1_affine(xp[k], yp[k], g1[k][0] + o1, g1[k][1] + o1,
-                   g1[k][2] + o1);
-    load_f2(xq[k], g2[k][0] + o2);
-    load_f2(yq[k], g2[k][1] + o2);
   }
-  Fp12 f;
-  kzg::miller_lane(f, xp, yp, xq, yq, skip);
-  store_f12(out + (size_t)i * kF12Words, f);
+  kzg::miller_eval_lane(s, X, Y, Z, lines, skip, g);
+#pragma unroll 1
+  for (int w = g.rank; w < kF12Words; w += kzg::kGroup)
+    out[(size_t)i * kF12Words + w] = (int32_t)s[w];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
     pairing_final_exp_kernel(int32_t* __restrict__ out,
                              int32_t* __restrict__ ok,
                              const int32_t* __restrict__ f,
-                             const int32_t* __restrict__ gammas,
-                             const int32_t* __restrict__ sel, int n_sel,
-                             int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                             const int32_t* __restrict__ gammas, int n) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* s;
+  int i;
+  const kzg::Grp g = make_group(smem, kFexpLane, &s, &i);
   if (i >= n) return;
-  Fp12 a, r;
-  load_f12(a, f + (size_t)i * kF12Words);
-  kzg::final_exp_lane(r, a, gammas, sel, n_sel);
-  store_f12(out + (size_t)i * kF12Words, r);
-  ok[i] = kzg::f12_is_one(r) ? 1 : 0;
+  kzg::final_exp_lane(s, f + (size_t)i * kF12Words, gammas, g);
+#pragma unroll 1
+  for (int w = g.rank; w < kF12Words; w += kzg::kGroup)
+    out[(size_t)i * kF12Words + w] = (int32_t)s[w];
+  if (g.rank == 0) {
+    bool one = true;
+#pragma unroll 1
+    for (int w = 0; w < kF12Words; w++)
+      one &= s[w] == (w < NF ? kzg::Field<NF>::one(w) : 0u);
+    ok[i] = one ? 1 : 0;
+  }
 }
 
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+int lane_blocks(int n) { return (n + kLanesABlock - 1) / kLanesABlock; }
+
+// the dynamic shared memory of a block of kLanesABlock lanes of `words`
+// each, allowed to the kernel
+int group_smem(const void* kernel, int words, int* bytes) {
+  *bytes = kLanesABlock * (words + kzg::kGrpWords) * 4;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+}
 
 }  // namespace
 
@@ -158,28 +209,43 @@ extern "C" int kzg_g2_scalar_mul(void* ox, void* oy, void* oz, const void* px,
   return (int)cudaGetLastError();
 }
 
-extern "C" int kzg_pairing_miller(void* out, const void* a1x, const void* a1y,
-                                  const void* a1z, const void* a2x,
-                                  const void* a2y, const void* a2inf,
-                                  const void* b1x, const void* b1y,
-                                  const void* b1z, const void* b2x,
-                                  const void* b2y, const void* b2inf, int n,
-                                  void* stream) {
-  pairing_miller_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+extern "C" int kzg_pairing_lines(void* out, const void* qx, const void* qy,
+                                 int n, void* stream) {
+  pairing_lines_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)out, (const int32_t*)qx, (const int32_t*)qy, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kzg_pairing_miller_eval(void* out, const void* a1x,
+                                       const void* a1y, const void* a1z,
+                                       const void* a_lines, const void* a2inf,
+                                       const void* b1x, const void* b1y,
+                                       const void* b1z, const void* b_lines,
+                                       const void* b2inf, int bcast, int n,
+                                       void* stream) {
+  int smem;
+  if (int err = group_smem((const void*)pairing_miller_eval_kernel,
+                           kMillerLane, &smem))
+    return err;
+  pairing_miller_eval_kernel<<<lane_blocks(n), kBlock, smem,
+                               (cudaStream_t)stream>>>(
       (int32_t*)out, (const int32_t*)a1x, (const int32_t*)a1y,
-      (const int32_t*)a1z, (const int32_t*)a2x, (const int32_t*)a2y,
-      (const int32_t*)a2inf, (const int32_t*)b1x, (const int32_t*)b1y,
-      (const int32_t*)b1z, (const int32_t*)b2x, (const int32_t*)b2y,
-      (const int32_t*)b2inf, n);
+      (const int32_t*)a1z, (const int32_t*)a_lines, (const int32_t*)a2inf,
+      (const int32_t*)b1x, (const int32_t*)b1y, (const int32_t*)b1z,
+      (const int32_t*)b_lines, (const int32_t*)b2inf, bcast, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int kzg_pairing_final_exp(void* out, void* ok, const void* f,
-                                     const void* gammas, const void* sel,
-                                     int n_sel, int n, void* stream) {
-  pairing_final_exp_kernel<<<blocks(n), kThreads, 0,
+                                     const void* gammas, int n,
+                                     void* stream) {
+  int smem;
+  if (int err = group_smem((const void*)pairing_final_exp_kernel, kFexpLane,
+                           &smem))
+    return err;
+  pairing_final_exp_kernel<<<lane_blocks(n), kBlock, smem,
                              (cudaStream_t)stream>>>(
       (int32_t*)out, (int32_t*)ok, (const int32_t*)f,
-      (const int32_t*)gammas, (const int32_t*)sel, n_sel, n);
+      (const int32_t*)gammas, n);
   return (int)cudaGetLastError();
 }

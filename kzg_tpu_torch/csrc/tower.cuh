@@ -1,7 +1,7 @@
 // The Fp2/Fp6/Fp12 tower on field.cuh's Fp (mul<12>, add<12>, sub<12>),
 // and the per-lane bodies of the pairing kernels (pairing_kernels.cu):
-// the G2 ladder (K-a), the two-pair Miller loop on the twist (K-b) and the
-// final exponentiation (K-c).
+// the G2 ladder (K-a), the lines of the Miller loop on the twist and
+// their evaluation (K-b), and the final exponentiation (K-c).
 //
 // Tower (curve/pairing.py): Fp2 = Fp[u]/(u^2 + 1), Fp6 = Fp2[v]/(v^3 - xi)
 // with xi = 1 + u, Fp12 = Fp6[w]/(w^2 - v). Every value is canonical after
@@ -9,12 +9,15 @@
 // versions (curve/pairing_kernels.py), which compute the same field
 // elements on the redundant engine.
 //
-// Code size: the Fp2 sums are inline; the Fp2 product and square, the
-// Fp6/Fp12 products, the curve steps and the Fermat inverse are
-// out-of-line (__noinline__), one copy each, on values passed by pointer
-// (they live in local memory): one copy of the 12-word product's code
-// per caller kept the first build of this file near three minutes.
-// Every out-of-line operation computes into locals before it writes its
+// Two layers. One thread a value: the Fp2 product and square, the Fp6
+// product and inverse, the Fp12 inverse, the curve steps and the Fp
+// inverse, out of line (__noinline__), one copy each, on values passed by
+// pointer (they live in local memory): K-a, the lines and K-c's one
+// inverse. A warp a value (below: f12_mul_g, f12_sqr_g, f12_mul_014_g,
+// cyc_sqr_g, frob_g): K-b's evaluation and K-c, whose Fp12 values live in
+// shared memory and whose Fp products, independent within each operation,
+// are spread over the warp.
+// Every one-thread operation computes into locals before it writes its
 // result, so the result may alias an operand.
 #pragma once
 #include "field.cuh"
@@ -44,22 +47,102 @@ __device__ __forceinline__ void fp_set_zero(uint32_t r[NF]) {
   for (int i = 0; i < NF; i++) r[i] = 0;
 }
 
-// a^(p-2) MSB first (square always, multiply on a 1 bit); 0 -> 0.
-__device__ __noinline__ void fp_inv(uint32_t* r, const uint32_t* a) {
-  // p - 2, little-endian words
-  constexpr uint32_t E[NF] = {0xffffaaa9u, 0xb9feffffu, 0xb153ffffu,
-                              0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
-                              0xf38512bfu, 0x64774b84u, 0x434bacd7u,
-                              0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-  uint32_t x[NF], acc[NF];
-  copy<NF>(x, a);
-  copy<NF>(acc, a);
+// The inverse by the binary extended Euclid algorithm, then one product:
+// for a = x R (Montgomery), u = a, v = p, x1 = 1, x2 = 0 keep x1 a = u
+// and x2 a = v (mod p) while u and v shrink by halvings and subtractions
+// (some 760 steps of 12-word shifts, compares and subtractions, no
+// product; variable time, which a verifier of public data may take), so
+// that x1 or x2 ends as a^-1 = x^-1 R^-1; its product by R^3 is x^-1 R.
+// 0 -> 0. Replaces a^(p-2) (a chain of 484 products at 4-bit windows, 608
+// bit by bit); the result is the same canonical words.
+__device__ __forceinline__ bool raw_is_one(const uint32_t a[NF]) {
+  uint32_t acc = a[0] ^ 1u;
+#pragma unroll
+  for (int i = 1; i < NF; i++) acc |= a[i];
+  return acc == 0;
+}
+
+__device__ __forceinline__ void raw_shr1(uint32_t a[NF]) {
+#pragma unroll
+  for (int i = 0; i < NF - 1; i++) a[i] = (a[i] >> 1) | (a[i + 1] << 31);
+  a[NF - 1] >>= 1;
+}
+
+// a >= b as integers
+__device__ __forceinline__ bool raw_geq(const uint32_t a[NF],
+                                        const uint32_t b[NF]) {
 #pragma unroll 1
-  for (int i = 379; i >= 0; i--) {  // bit 380 is the leading one
-    mul<NF>(acc, acc, acc);
-    if ((E[i >> 5] >> (i & 31)) & 1) mul<NF>(acc, acc, x);
+  for (int i = NF - 1; i >= 0; i--)
+    if (a[i] != b[i]) return a[i] > b[i];
+  return true;
+}
+
+// a -= b (a >= b)
+__device__ __forceinline__ void raw_sub(uint32_t a[NF], const uint32_t b[NF]) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NF; i++) {
+    const uint64_t d = (uint64_t)a[i] - b[i] - borrow;
+    a[i] = (uint32_t)d;
+    borrow = (d >> 32) & 1;
   }
-  copy<NF>(r, acc);
+}
+
+// x / 2 mod p for x < p: (x + p) / 2 when x is odd (x + p < 2^382)
+__device__ __forceinline__ void half_mod(uint32_t x[NF]) {
+  if (x[0] & 1) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int i = 0; i < NF; i++) {
+      const uint64_t s = (uint64_t)x[i] + Field<NF>::m(i) + carry;
+      x[i] = (uint32_t)s;
+      carry = s >> 32;
+    }
+  }
+  raw_shr1(x);
+}
+
+__device__ __noinline__ void fp_inv(uint32_t* r, const uint32_t* a) {
+  // R^3 mod p, little-endian words
+  constexpr uint32_t kR3[NF] = {0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u,
+                                0x315f831eu, 0x615e29ddu, 0x9a53352au,
+                                0x921e1761u, 0x34c04e5eu, 0x65724728u,
+                                0x2512d435u, 0x91755d4du, 0x0aa63460u};
+  uint32_t u[NF], v[NF], x1[NF], x2[NF];
+  copy<NF>(u, a);
+  if (is_zero<NF>(u)) {
+    fp_set_zero(r);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < NF; i++) {
+    v[i] = Field<NF>::m(i);
+    x1[i] = i == 0;
+    x2[i] = 0;
+  }
+#pragma unroll 1
+  while (!raw_is_one(u) && !raw_is_one(v)) {
+#pragma unroll 1
+    while (!(u[0] & 1)) {
+      raw_shr1(u);
+      half_mod(x1);
+    }
+#pragma unroll 1
+    while (!(v[0] & 1)) {
+      raw_shr1(v);
+      half_mod(x2);
+    }
+    if (raw_geq(u, v)) {
+      raw_sub(u, v);
+      sub<NF>(x1, x1, x2);
+    } else {
+      raw_sub(v, u);
+      sub<NF>(x2, x2, x1);
+    }
+  }
+  uint32_t c[NF];
+  copy<NF>(c, kR3);
+  mul<NF>(r, raw_is_one(u) ? x1 : x2, c);
 }
 
 // ---- Fp2 (inline) ----
@@ -138,7 +221,7 @@ __device__ __forceinline__ bool f2_is_zero(const Fp2& a) {
   return is_zero<NF>(a.c0) && is_zero<NF>(a.c1);
 }
 
-// (a0 - a1 u) / (a0^2 + a1^2): one Fermat inverse; 0 -> 0.
+// (a0 - a1 u) / (a0^2 + a1^2): one Fp inverse; 0 -> 0.
 __device__ __noinline__ void f2_inv(Fp2* r, const Fp2* a) {
   uint32_t n[NF], t[NF];
   mul<NF>(n, a->c0, a->c0);
@@ -151,11 +234,6 @@ __device__ __noinline__ void f2_inv(Fp2* r, const Fp2* a) {
 }
 
 // ---- Fp6 ----
-__device__ __forceinline__ void f6_add(Fp6& r, const Fp6& a, const Fp6& b) {
-#pragma unroll
-  for (int i = 0; i < 3; i++) f2_add(r.c[i], a.c[i], b.c[i]);
-}
-
 __device__ __forceinline__ void f6_sub(Fp6& r, const Fp6& a, const Fp6& b) {
 #pragma unroll
   for (int i = 0; i < 3; i++) f2_sub(r.c[i], a.c[i], b.c[i]);
@@ -206,40 +284,6 @@ __device__ __noinline__ void f6_mul(Fp6* r, const Fp6* a, const Fp6* b) {
   r->c[2] = c2;
 }
 
-// (c0 + c1 v + c2 v^2)(d0 + d1 v): 5 Fp2 products.
-__device__ __noinline__ void f6_mul_01(Fp6* r, const Fp6* a, const Fp2* d0,
-                                       const Fp2* d1) {
-  Fp2 t0, t1, s, u, c0, c1, c2;
-  f2_mul(t0, a->c[0], *d0);
-  f2_mul(t1, a->c[1], *d1);
-  f2_add(s, a->c[0], a->c[1]);
-  f2_add(u, *d0, *d1);
-  f2_mul(s, s, u);
-  f2_sub(s, s, t0);
-  f2_sub(c1, s, t1);        // c0 d1 + c1 d0
-  f2_mul(s, a->c[2], *d1);
-  f2_mul_xi(s, s);
-  f2_add(c0, t0, s);        // c0 d0 + xi c2 d1
-  f2_mul(s, a->c[2], *d0);
-  f2_add(c2, t1, s);        // c1 d1 + c2 d0
-  r->c[0] = c0;
-  r->c[1] = c1;
-  r->c[2] = c2;
-}
-
-// (c0 + c1 v + c2 v^2) d1 v = xi c2 d1 + c0 d1 v + c1 d1 v^2
-__device__ __forceinline__ void f6_mul_1(Fp6& r, const Fp6& a,
-                                         const Fp2& d1) {
-  Fp2 c0, c1, c2;
-  f2_mul(c0, a.c[2], d1);
-  f2_mul_xi(c0, c0);
-  f2_mul(c1, a.c[0], d1);
-  f2_mul(c2, a.c[1], d1);
-  r.c[0] = c0;
-  r.c[1] = c1;
-  r.c[2] = c2;
-}
-
 // pairing.F6.inv: one Fp2 inverse.
 __device__ __noinline__ void f6_inv(Fp6* r, const Fp6* a) {
   const Fp2 &x = a->c[0], &y = a->c[1], &z = a->c[2];
@@ -268,79 +312,6 @@ __device__ __noinline__ void f6_inv(Fp6* r, const Fp6* a) {
 }
 
 // ---- Fp12 ----
-__device__ __forceinline__ void f12_set_one(Fp12& r) {
-#pragma unroll
-  for (int j = 0; j < 2; j++)
-#pragma unroll
-    for (int i = 0; i < 3; i++) f2_set_zero(r.c[j].c[i]);
-  fp_set_one(r.c[0].c[0].c0);
-}
-
-__device__ __forceinline__ bool f12_is_one(const Fp12& a) {
-  bool ok = true;
-#pragma unroll
-  for (int k = 0; k < NF; k++)
-    ok &= a.c[0].c[0].c0[k] == Field<NF>::one(k);
-  ok &= is_zero<NF>(a.c[0].c[0].c1);
-#pragma unroll
-  for (int i = 1; i < 3; i++) ok &= f2_is_zero(a.c[0].c[i]);
-#pragma unroll
-  for (int i = 0; i < 3; i++) ok &= f2_is_zero(a.c[1].c[i]);
-  return ok;
-}
-
-// Karatsuba over Fp6: 3 Fp6 products.
-__device__ __noinline__ void f12_mul(Fp12* r, const Fp12* a, const Fp12* b) {
-  Fp6 t0, t1, s, u;
-  f6_mul(&t0, &a->c[0], &b->c[0]);
-  f6_mul(&t1, &a->c[1], &b->c[1]);
-  f6_add(s, a->c[0], a->c[1]);
-  f6_add(u, b->c[0], b->c[1]);
-  f6_mul(&s, &s, &u);
-  f6_sub(s, s, t0);
-  f6_sub(r->c[1], s, t1);
-  f6_mul_v(t1, t1);
-  f6_add(r->c[0], t0, t1);
-}
-
-// (a0 + a1 w)^2 = (a0^2 + v a1^2) + 2 a0 a1 w from a0 a1 and
-// (a0 + a1)(a0 + v a1): 2 Fp6 products.
-__device__ __noinline__ void f12_sqr(Fp12* r, const Fp12* a) {
-  Fp6 ab, s, u;
-  f6_mul(&ab, &a->c[0], &a->c[1]);
-  f6_add(s, a->c[0], a->c[1]);
-  f6_mul_v(u, a->c[1]);
-  f6_add(u, a->c[0], u);
-  f6_mul(&s, &s, &u);
-  f6_sub(s, s, ab);
-  f6_mul_v(u, ab);
-  f6_sub(r->c[0], s, u);
-  f6_add(r->c[1], ab, ab);
-}
-
-__device__ __forceinline__ void f12_conj(Fp12& r, const Fp12& a) {
-  r.c[0] = a.c[0];
-  f6_neg(r.c[1], a.c[1]);
-}
-
-// f (l0 + l1 v + l4 v w): with A = l0 + l1 v and B = l4 v,
-// (a + b w)(A + B w) = (aA + v bB) + ((a + b)(A + B) - aA - bB) w.
-__device__ __noinline__ void f12_mul_014(Fp12* r, const Fp12* f,
-                                         const Fp2* l0, const Fp2* l1,
-                                         const Fp2* l4) {
-  Fp6 aa, bb, s;
-  Fp2 o;
-  f6_mul_01(&aa, &f->c[0], l0, l1);
-  f6_mul_1(bb, f->c[1], *l4);
-  f2_add(o, *l1, *l4);
-  f6_add(s, f->c[0], f->c[1]);
-  f6_mul_01(&s, &s, l0, &o);
-  f6_sub(s, s, aa);
-  f6_sub(r->c[1], s, bb);
-  f6_mul_v(bb, bb);
-  f6_add(r->c[0], aa, bb);
-}
-
 // pairing.F12.inv: (c0 - c1 w) / (c0^2 - v c1^2).
 __device__ __noinline__ void f12_inv(Fp12* r, const Fp12* a) {
   Fp6 s, t;
@@ -352,22 +323,6 @@ __device__ __noinline__ void f12_inv(Fp12* r, const Fp12* a) {
   f6_mul(&t, &a->c[1], &s);
   f6_mul(&r->c[0], &a->c[0], &s);
   f6_neg(r->c[1], t);
-}
-
-// a^(p^k): each Fp2 slot conjugated for odd k, then times its gamma;
-// gam holds the 6 gammas of this k as Montgomery words, slot (j, i) at
-// ((j * 3 + i) * 2 + component) * 12.
-__device__ __noinline__ void f12_frobenius(Fp12* r, const Fp12* a,
-                                           const int32_t* gam, bool odd) {
-#pragma unroll 1
-  for (int s = 0; s < 6; s++) {
-    const int j = s / 3, i = s % 3;
-    Fp2 x, g;
-    if (odd) f2_conj(x, a->c[j].c[i]); else x = a->c[j].c[i];
-    load<NF>(g.c0, gam + (2 * s) * NF);
-    load<NF>(g.c1, gam + (2 * s + 1) * NF);
-    f2_mul(r->c[j].c[i], x, g);
-  }
 }
 
 // ---- the Miller loop on the twist E'(Fp2) ----
@@ -455,104 +410,578 @@ __device__ __noinline__ void miller_add(Jac2* t, const Fp2* xq,
   t->z = z3;
 }
 
-// f *= l0 + (l1 xP) v + (l4 yP) v w
-__device__ __forceinline__ void miller_line(Fp12& f, const Fp2& l0,
-                                            const Fp2& l1, const Fp2& l4,
-                                            const uint32_t xp[NF],
-                                            const uint32_t yp[NF]) {
-  Fp2 a, b;
-  f2_mul_fp(a, l1, xp);
-  f2_mul_fp(b, l4, yp);
-  f12_mul_014(&f, &f, &l0, &a, &b);
-}
-
-// The affine (x, y) of a Jacobian G1 point: one Fermat inverse of Z
-// (Z = 0 gives (0, 0)).
-__device__ __noinline__ void g1_affine(uint32_t* x, uint32_t* y,
-                                       const int32_t* X, const int32_t* Y,
-                                       const int32_t* Z) {
-  uint32_t zi[NF], zi2[NF], t[NF];
-  load<NF>(t, Z);
-  fp_inv(zi, t);
-  mul<NF>(zi2, zi, zi);
-  load<NF>(t, X);
-  mul<NF>(x, t, zi2);
-  mul<NF>(zi2, zi2, zi);
-  load<NF>(t, Y);
-  mul<NF>(y, t, zi2);
-}
-
-// |x| = 0xd201000000010000 below its leading bit, MSB first
+// |x| = 0xd201000000010000 below its leading bit, MSB first: the Miller
+// loop's doublings (63) and additions (5), and the hard part's
+// exponentiations by |x|
 constexpr unsigned long long kMillerBits = 0xd201000000010000ull;
 constexpr int kMillerTop = 63;
+constexpr int kLines = 68;      // lines a G2 point: 63 doublings, 5 additions
+constexpr int kLineWords = 6 * NF;   // (l0, l1, l4): 3 Fp2
+// |c| = (|x| + 1)/3 (c = (x - 1)/3; x is negative), below its leading bit
+constexpr unsigned long long kHardCBits = 0x460055555555aaabull;
+constexpr int kHardCTop = 62;
 
-// One lane of K-b: pairs k = 0, 1 of affine P (xp, yp) and Q (xq, yq),
-// skip[k] for a pair with a point at infinity (it contributes 1).
-// f = conj(prod_k f_{|x|,Qk}(Pk)).
-__device__ __forceinline__ void miller_lane(Fp12& f, const uint32_t (*xp)[NF],
-                                            const uint32_t (*yp)[NF],
-                                            const Fp2* xq, const Fp2* yq,
-                                            const bool* skip) {
-  Jac2 t[2];
-#pragma unroll
-  for (int k = 0; k < 2; k++) {
-    t[k].x = xq[k];
-    t[k].y = yq[k];
-    f2_set_one(t[k].z);
-  }
-  f12_set_one(f);
+// ---- the lines part of K-b: one thread a G2 point ----
+// out: the point's kLines lines (l0, l1, l4) in the loop's order, the
+// tangent at each doubling, then the chord at each addition.
+__device__ __forceinline__ void lines_lane(int32_t* out, const Fp2& xq,
+                                           const Fp2& yq) {
+  Jac2 t;
+  t.x = xq;
+  t.y = yq;
+  f2_set_one(t.z);
+  Fp2 l[3];
 #pragma unroll 1
   for (int b = kMillerTop - 1; b >= 0; b--) {
-    f12_sqr(&f, &f);
-    const bool add_bit = (kMillerBits >> b) & 1;
 #pragma unroll 1
-    for (int step = 0; step < (add_bit ? 4 : 2); step++) {
-      const int k = step & 1;
-      if (skip[k]) continue;
-      Fp2 l0, l1, l4;
-      if (step < 2) miller_dbl(&t[k], &l0, &l1, &l4);
-      else miller_add(&t[k], &xq[k], &yq[k], &l0, &l1, &l4);
-      miller_line(f, l0, l1, l4, xp[k], yp[k]);
+    for (int step = 0; step < 1 + ((kMillerBits >> b) & 1); step++) {
+      if (step == 0) miller_dbl(&t, &l[0], &l[1], &l[2]);
+      else miller_add(&t, &xq, &yq, &l[0], &l[1], &l[2]);
+#pragma unroll 1
+      for (int q = 0; q < 3; q++) {
+        store<NF>(out + q * 2 * NF, l[q].c0);
+        store<NF>(out + q * 2 * NF + NF, l[q].c1);
+      }
+      out += kLineWords;
     }
   }
-  f12_conj(f, f);
 }
 
-// One lane of K-c: out = f^((p^12 - 1) / r). gam: the gammas of p^1,
-// p^2, p^3 (6 Fp2 each), sel: the hard part's joint-ladder selectors.
-// The 16-entry table lives in local memory.
-__device__ __forceinline__ void final_exp_lane(Fp12& out, const Fp12& f,
-                                               const int32_t* gam,
-                                               const int32_t* sel,
-                                               int n_sel) {
+// ---- a lane's Fp12 arithmetic on a group of threads ----
+// A group is the kGroup = 32 threads of one warp, which hold one lane's
+// Fp12 values in shared memory: slot s = 3 j + i (the coefficient of
+// w^j v^i) at words 24 s (c0) and 24 s + 12 (c1), as in device memory.
+// Every operation below is a few tiers; a tier hands its outputs out
+// round-robin (output o to rank o mod kGroup) and ends in __syncwarp, so
+// each thread reads only what an earlier tier wrote. The Fp products of
+// an operation are independent once its operand sums are formed
+// (Karatsuba tiers): f12_mul's 54, f12_sqr's 36, the sparse line
+// product's 39 and the cyclotomic square's 18 each take
+// ceil(count / kGroup) product latencies a thread (a full warp was
+// faster than 8 or 16 threads a lane, PERF.md). The sums between are
+// done in the tiers and repeated where that saves one. Any output may
+// alias an input: inputs are read only in an operation's first tier.
+// Branches on a lane's data are uniform across its warp. Values sit at
+// 48-byte offsets, so each loads as three 128-bit shared loads without
+// bank conflicts (a 13-word stride, tried, loaded word by word and was
+// slower).
+constexpr int kGroup = 32;
+struct Grp {
+  int rank;       // threadIdx.x % kGroup
+  uint32_t* op;   // operand pairs, then Fp2 products: 18 x 48 words
+  uint32_t* pr;   // Fp products: 54 x 12 words
+  uint32_t* tt;   // tier values: 9 Fp2
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+};
+constexpr int kF12 = 12 * NF;                      // words of an Fp12
+constexpr int kGrpWords = 18 * 48 + 54 * NF + 9 * 2 * NF;
+
+// word offset of component c of Fp2 slot s
+__device__ __forceinline__ int fw(int s, int c) { return 2 * NF * s + NF * c; }
+
+// r = z.c of xi z = (z0 - z1) + (z0 + z1) u, for the Fp2 at z
+__device__ __forceinline__ void xi_at(uint32_t r[NF], const uint32_t* z,
+                                      int c) {
+  uint32_t a[NF], b[NF];
+  copy<NF>(a, z);
+  copy<NF>(b, z + NF);
+  if (c) add<NF>(r, a, b); else sub<NF>(r, a, b);
+}
+
+__device__ __forceinline__ void add_at(uint32_t r[NF], const uint32_t* p) {
+  uint32_t t[NF];
+  copy<NF>(t, p);
+  add<NF>(r, r, t);
+}
+
+__device__ __forceinline__ void sub_at(uint32_t r[NF], const uint32_t* p) {
+  uint32_t t[NF];
+  copy<NF>(t, p);
+  sub<NF>(r, r, t);
+}
+
+// The Fp2 products of n operand pairs: pair i's factors at g.op + 48 i
+// and + 24 (sq: the square of the first); product i to res + 24 i (res
+// may be g.op). Karatsuba's 3 Fp products a pair, a square's 2
+// ((a0 + a1)(a0 - a1) and a0 a1), spread over the group.
+__device__ __noinline__ void f2_mul_batch(uint32_t* res, int n, bool sq,
+                                          Grp g) {
+  const int per = sq ? 2 : 3;
+  // operands without a branch on k: every thread forms both sums and
+  // selects (1-4 % faster than branching, PERF.md)
+#pragma unroll 1
+  for (int p = g.rank; p < per * n; p += kGroup) {
+    const int i = p / per, k = p - i * per;
+    const uint32_t* L = g.op + 48 * i;
+    const uint32_t* R = sq ? L : L + 2 * NF;
+    uint32_t x[NF], y[NF], u[NF], v[NF];
+    const int hi = k == 1 && !sq ? NF : 0;
+    copy<NF>(x, L + hi);
+    copy<NF>(u, L + NF);
+    copy<NF>(y, R + hi);
+    copy<NF>(v, R + NF);
+    // sq: (a0 + a1)(a0 - a1) for k = 0, a0 a1 for k = 1;
+    // else a0 b0, a1 b1, (a0 + a1)(b0 + b1)
+    const bool sum = sq ? k == 0 : k == 2;
+    uint32_t s[NF], d[NF];
+    add<NF>(s, x, u);
+    if (sq) sub<NF>(d, x, u); else add<NF>(d, y, v);
+#pragma unroll
+    for (int w = 0; w < NF; w++) {
+      x[w] = sum ? s[w] : x[w];
+      y[w] = sum ? d[w] : (sq ? u[w] : y[w]);
+    }
+    mul<NF>(x, x, y);
+    copy<NF>(g.pr + NF * p, x);
+  }
+  g.sync();
+#pragma unroll 1
+  for (int o = g.rank; o < 2 * n; o += kGroup) {
+    const int i = o >> 1, c = o & 1;
+    const uint32_t* t = g.pr + NF * per * i;
+    uint32_t v[NF], w[NF];
+    if (sq) {                            // (a0^2 - a1^2, 2 a0 a1)
+      copy<NF>(v, t + c * NF);
+      add<NF>(w, v, v);
+    } else {                             // (t0 - t1, t2 - t0 - t1)
+      copy<NF>(v, t + (c ? 2 : 0) * NF);
+      sub_at(v, t + NF);
+      copy<NF>(w, v);
+      sub_at(w, t);
+    }
+#pragma unroll
+    for (int k = 0; k < NF; k++) v[k] = c ? w[k] : v[k];
+    copy<NF>(res + 2 * NF * i + NF * c, v);
+  }
+  g.sync();
+}
+
+// The Fp6 products x[k] y[k] (k < K <= 3) to t + 72 k (not g.op):
+// pairing.F6.__mul__'s 6 Fp2 products each (Karatsuba).
+__device__ __noinline__ void f6_mul_batch(uint32_t* t, const uint32_t* x0,
+                                          const uint32_t* y0,
+                                          const uint32_t* x1,
+                                          const uint32_t* y1,
+                                          const uint32_t* x2,
+                                          const uint32_t* y2, int K, Grp g) {
+  // pair 6 k + j: (a_j, b_j) for j < 3, then (a1 + a2, ..), (a0 + a1, ..),
+  // (a0 + a2, ..)
+#pragma unroll 1
+  for (int v = g.rank; v < 24 * K; v += kGroup) {
+    const int pair = v >> 2, side = (v >> 1) & 1, c = v & 1;
+    const int k = pair / 6, j = pair - 6 * (pair / 6);
+    const uint32_t* src = side ? (k == 0 ? y0 : k == 1 ? y1 : y2)
+                               : (k == 0 ? x0 : k == 1 ? x1 : x2);
+    const int i0 = j < 3 ? j : (j == 3 ? 1 : 0);
+    uint32_t a[NF];
+    copy<NF>(a, src + fw(i0, c));
+    if (j >= 3) add_at(a, src + fw(j == 4 ? 1 : 2, c));
+    copy<NF>(g.op + 48 * pair + 2 * NF * side + NF * c, a);
+  }
+  g.sync();
+  f2_mul_batch(g.op, 6 * K, false, g);
+  // T0 = xi (m3 - m1 - m2) + m0, T1 = m4 - m0 - m1 + xi m2,
+  // T2 = m5 - m0 - m2 + m1
+#pragma unroll 1
+  for (int v = g.rank; v < 6 * K; v += kGroup) {
+    const int k = v / 6, q = (v >> 1) % 3, c = v & 1;
+    const uint32_t* m = g.op + 6 * 2 * NF * k;
+    uint32_t r[NF];
+    if (q == 0) {
+      uint32_t s1[NF];
+      copy<NF>(r, m + fw(3, 0));
+      sub_at(r, m + fw(1, 0));
+      sub_at(r, m + fw(2, 0));
+      copy<NF>(s1, m + fw(3, 1));
+      sub_at(s1, m + fw(1, 1));
+      sub_at(s1, m + fw(2, 1));
+      if (c) add<NF>(r, r, s1); else sub<NF>(r, r, s1);
+      add_at(r, m + fw(0, c));
+    } else if (q == 1) {
+      xi_at(r, m + fw(2, 0), c);
+      add_at(r, m + fw(4, c));
+      sub_at(r, m + fw(0, c));
+      sub_at(r, m + fw(1, c));
+    } else {
+      copy<NF>(r, m + fw(5, c));
+      sub_at(r, m + fw(0, c));
+      sub_at(r, m + fw(2, c));
+      add_at(r, m + fw(1, c));
+    }
+    copy<NF>(t + 3 * 2 * NF * k + fw(q, c), r);
+  }
+  g.sync();
+}
+
+// out = a b (Karatsuba over Fp6: a0 b0, a1 b1, (a0 + a1)(b0 + b1)).
+__device__ __noinline__ void f12_mul_g(uint32_t* out, const uint32_t* a,
+                                       const uint32_t* b, Grp g) {
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const uint32_t* src = v < 6 ? a : b;
+    const int w = (v % 6) * NF;
+    uint32_t r[NF];
+    copy<NF>(r, src + w);
+    add_at(r, src + 6 * NF + w);
+    copy<NF>(g.tt + (v < 6 ? 0 : 6 * NF) + w, r);
+  }
+  g.sync();
+  f6_mul_batch(g.tt, a, b, a + 6 * NF, b + 6 * NF, g.tt, g.tt + 6 * NF, 3,
+               g);
+  // out0 = t0 + v t1 = (t0_0 + xi t1_2, t0_1 + t1_0, t0_2 + t1_1),
+  // out1 = tm - t0 - t1
+  const uint32_t *t0 = g.tt, *t1 = g.tt + 6 * NF, *tm = g.tt + 12 * NF;
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const int s = v >> 1, c = v & 1, i = s % 3;
+    uint32_t r[NF];
+    if (s < 3) {
+      if (i == 0) xi_at(r, t1 + fw(2, 0), c);
+      else copy<NF>(r, t1 + fw(i - 1, c));
+      add_at(r, t0 + fw(i, c));
+    } else {
+      copy<NF>(r, tm + fw(i, c));
+      sub_at(r, t0 + fw(i, c));
+      sub_at(r, t1 + fw(i, c));
+    }
+    copy<NF>(out + fw(s, c), r);
+  }
+  g.sync();
+}
+
+// out = a^2 = (a0^2 + v a1^2) + 2 a0 a1 w from the Fp6 products a0 a1 and
+// (a0 + a1)(a0 + v a1) (the Miller loop's squaring).
+__device__ __noinline__ void f12_sqr_g(uint32_t* out, const uint32_t* a,
+                                       Grp g) {
+  // g.tt: s = a0 + a1 at 0, u = a0 + v a1 at 72 (v a1 = (xi a1_2, a1_0,
+  // a1_1))
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const int s = (v % 6) >> 1, c = v & 1;
+    uint32_t r[NF];
+    if (v < 6) copy<NF>(r, a + fw(3 + s, c));
+    else if (s == 0) xi_at(r, a + fw(5, 0), c);
+    else copy<NF>(r, a + fw(2 + s, c));
+    add_at(r, a + fw(s, c));
+    copy<NF>(g.tt + (v < 6 ? 0 : 6 * NF) + fw(s, c), r);
+  }
+  g.sync();
+  f6_mul_batch(g.tt, a, a + 6 * NF, g.tt, g.tt + 6 * NF, nullptr, nullptr,
+               2, g);
+  // out0 = q - ab - v ab, out1 = 2 ab
+  const uint32_t *ab = g.tt, *q = g.tt + 6 * NF;
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const int s = v >> 1, c = v & 1, i = s % 3;
+    uint32_t r[NF];
+    if (s < 3) {
+      uint32_t t[NF];
+      copy<NF>(r, q + fw(i, c));
+      sub_at(r, ab + fw(i, c));
+      if (i == 0) xi_at(t, ab + fw(2, 0), c);
+      else copy<NF>(t, ab + fw(i - 1, c));
+      sub<NF>(r, r, t);
+    } else {
+      copy<NF>(r, ab + fw(i, c));
+      add<NF>(r, r, r);
+    }
+    copy<NF>(out + fw(s, c), r);
+  }
+  g.sync();
+}
+
+// out = f (l0 + l1 v + l4 v w), the line (l0, l1, l4) at l: with
+// A = l0 + l1 v, B = l4 v, aa = f0 A (5 Fp2 products), bb = f1 B (3), and
+// s = (f0 + f1)(l0 + (l1 + l4) v) (5): out = (aa + v bb) + (s - aa - bb) w.
+__device__ __noinline__ void f12_mul_014_g(uint32_t* out, const uint32_t* f,
+                                           const uint32_t* l, Grp g) {
+  // the 13 pairs: left as a mask of f's slots, right of the line's
+  constexpr unsigned char kLeft[13] = {0x01, 0x02, 0x03, 0x04, 0x04,
+                                       0x20, 0x08, 0x10, 0x09, 0x12,
+                                       0x1b, 0x24, 0x24};
+  constexpr unsigned char kRight[13] = {1, 2, 3, 2, 1, 4, 4, 4,
+                                        1, 6, 7, 6, 1};
+#pragma unroll 1
+  for (int v = g.rank; v < 52; v += kGroup) {
+    const int pair = v >> 2, side = (v >> 1) & 1, c = v & 1;
+    const int mask = side ? kRight[pair] : kLeft[pair];
+    const uint32_t* src = side ? l : f;
+    uint32_t r[NF];
+    bool first = true;
+#pragma unroll 1
+    for (int b = 0; b < 6; b++) {
+      if (!((mask >> b) & 1)) continue;
+      if (first) copy<NF>(r, src + fw(b, c)); else add_at(r, src + fw(b, c));
+      first = false;
+    }
+    copy<NF>(g.op + 48 * pair + 2 * NF * side + NF * c, r);
+  }
+  g.sync();
+  f2_mul_batch(g.op, 13, false, g);
+  // g.tt: aa (slots 0-2), bb (3-5), s (6-8)
+  //   aa = (m0 + xi m3, m2 - m0 - m1, m1 + m4), bb = (xi m5, m6, m7),
+  //   s = (m8 + xi m11, m10 - m8 - m9, m9 + m12)
+  const uint32_t* m = g.op;
+#pragma unroll 1
+  for (int v = g.rank; v < 18; v += kGroup) {
+    const int s = v >> 1, c = v & 1, q = s % 3;
+    const int base = s < 3 ? 0 : 8;      // aa from m0, s from m8
+    uint32_t r[NF];
+    if (s >= 3 && s < 6) {
+      if (q == 0) xi_at(r, m + fw(5, 0), c);
+      else copy<NF>(r, m + fw(5 + q, c));
+    } else if (q == 0) {
+      xi_at(r, m + fw(base + 3, 0), c);
+      add_at(r, m + fw(base, c));
+    } else if (q == 1) {
+      copy<NF>(r, m + fw(base + 2, c));
+      sub_at(r, m + fw(base, c));
+      sub_at(r, m + fw(base + 1, c));
+    } else {
+      copy<NF>(r, m + fw(base + 1, c));
+      add_at(r, m + fw(base + 4, c));
+    }
+    copy<NF>(g.tt + fw(s, c), r);
+  }
+  g.sync();
+  const uint32_t *aa = g.tt, *bb = g.tt + 6 * NF, *ss = g.tt + 12 * NF;
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const int s = v >> 1, c = v & 1, i = s % 3;
+    uint32_t r[NF];
+    if (s < 3) {
+      if (i == 0) xi_at(r, bb + fw(2, 0), c);
+      else copy<NF>(r, bb + fw(i - 1, c));
+      add_at(r, aa + fw(i, c));
+    } else {
+      copy<NF>(r, ss + fw(i, c));
+      sub_at(r, aa + fw(i, c));
+      sub_at(r, bb + fw(i, c));
+    }
+    copy<NF>(out + fw(s, c), r);
+  }
+  g.sync();
+}
+
+// out = a^2 for a in the cyclotomic subgroup (Granger-Scott): three Fp4
+// squarings of (z0, z1) = slots (0, 4), (z2, z3) = (3, 2),
+// (z4, z5) = (1, 5), each from the Fp2 squares of its two halves and
+// their sum: 9 Fp2 squares, 18 Fp products. With (c0, c1) the Fp4 square
+// of a pair, (xi t1 + t0, t2 - t0 - t1): slot 0 = 3 A.c0 - 2 z0,
+// 4 = 3 A.c1 + 2 z1, 1 = 3 B.c0 - 2 z4, 5 = 3 B.c1 + 2 z5,
+// 3 = 3 xi C.c1 + 2 z2, 2 = 3 C.c0 - 2 z3 (A, B, C the three pairs).
+__device__ __noinline__ void cyc_sqr_g(uint32_t* out, const uint32_t* a,
+                                       Grp g) {
+  constexpr unsigned char kHalf[6] = {0, 4, 3, 2, 1, 5};
+#pragma unroll 1
+  for (int v = g.rank; v < 18; v += kGroup) {
+    const int i = v >> 1, c = v & 1, p = i / 3, w = i % 3;
+    uint32_t r[NF];
+    copy<NF>(r, a + fw(kHalf[2 * p + (w == 1)], c));
+    if (w == 2) add_at(r, a + fw(kHalf[2 * p + 1], c));
+    copy<NF>(g.op + 48 * i + NF * c, r);
+  }
+  g.sync();
+  f2_mul_batch(g.op, 9, true, g);
+  // slot s: its pair, which half of the Fp4 square, its sign
+  constexpr unsigned char kPair[6] = {0, 1, 2, 2, 0, 1};
+  constexpr unsigned char kHi[6] = {0, 0, 0, 1, 1, 1};
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    const int s = v >> 1, c = v & 1;
+    const uint32_t* t = g.op + 3 * 2 * NF * kPair[s];
+    uint32_t r[NF];
+#pragma unroll 1
+    for (int h = 0; h < (s == 3 ? 2 : 1); h++) {
+      const int cc = s == 3 ? h : c;     // slot 3 needs both of C.c1
+      uint32_t e[NF];
+      if (kHi[s]) {                       // t2 - t0 - t1
+        copy<NF>(e, t + fw(2, cc));
+        sub_at(e, t + fw(0, cc));
+        sub_at(e, t + fw(1, cc));
+      } else {                            // xi t1 + t0
+        xi_at(e, t + fw(1, 0), cc);
+        add_at(e, t + fw(0, cc));
+      }
+      if (h == 0) copy<NF>(r, e);
+      else if (c) add<NF>(r, r, e);      // xi (r + e u)
+      else sub<NF>(r, r, e);
+    }
+    uint32_t z[NF], u[NF];
+    copy<NF>(u, r);
+    add<NF>(r, r, r);
+    add<NF>(r, r, u);                     // 3 c
+    copy<NF>(z, a + fw(s, c));
+    add<NF>(z, z, z);
+    if (s >= 3) add<NF>(r, r, z); else sub<NF>(r, r, z);
+    copy<NF>(out + fw(s, c), r);
+  }
+  g.sync();
+}
+
+// out = a^(p^k): each slot conjugated for odd k, then times its gamma
+// (gam: the 6 gammas of this k as Montgomery words, slot s at 24 s).
+__device__ __noinline__ void frob_g(uint32_t* out, const uint32_t* a,
+                                    const int32_t* gam, bool odd, Grp g) {
+#pragma unroll 1
+  for (int v = g.rank; v < 24; v += kGroup) {
+    const int s = v >> 2, side = (v >> 1) & 1, c = v & 1;
+    uint32_t r[NF];
+    if (side) {
+      load<NF>(r, gam + fw(s, c));
+    } else {
+      copy<NF>(r, a + fw(s, c));
+      if (odd && c) neg<NF>(r, r);
+    }
+    copy<NF>(g.op + 48 * s + 2 * NF * side + NF * c, r);
+  }
+  g.sync();
+  f2_mul_batch(out, 6, false, g);
+}
+
+// out = conj(a) (the p^6 Frobenius: c1 negated)
+__device__ __noinline__ void conj_g(uint32_t* out, const uint32_t* a, Grp g) {
+#pragma unroll 1
+  for (int v = g.rank; v < 12; v += kGroup) {
+    uint32_t r[NF];
+    copy<NF>(r, a + NF * v);
+    if (v >= 6) neg<NF>(r, r);
+    copy<NF>(out + NF * v, r);
+  }
+  g.sync();
+}
+
+__device__ __noinline__ void copy_g(uint32_t* out, const uint32_t* a, Grp g) {
+#pragma unroll 1
+  for (int w = g.rank; w < kF12; w += kGroup) out[w] = a[w];
+  g.sync();
+}
+
+// out = m^e for m in the cyclotomic subgroup, e's bits below its leading
+// one MSB first (out not m)
+__device__ __noinline__ void cyc_pow_g(uint32_t* out, const uint32_t* m,
+                                       unsigned long long bits, int top,
+                                       Grp g) {
+  copy_g(out, m, g);
+#pragma unroll 1
+  for (int b = top - 1; b >= 0; b--) {
+    cyc_sqr_g(out, out, g);
+    if ((bits >> b) & 1) f12_mul_g(out, out, m, g);
+  }
+}
+
+// One lane of K-b's evaluation: pairs k = 0, 1 of a Jacobian G1 point
+// P = (X, Y, Z) and the lines of its G2 point (kLines x kLineWords words
+// each). The line is evaluated at P scaled by Z^3, an Fp factor that the
+// final exponentiation removes: l0 Z^3 + (l1 X Z) v + (l4 Y) v w, so no
+// inverse is taken. skip[k]: a pair with a point at infinity contributes
+// 1. f = conj(prod_k f_{|x|,Qk}(Pk)) (x < 0) in s[0, 144); s holds
+// 144 + 144 + 72 words (f, the evaluated lines, Z^3, X Z, Y of each pair).
+__device__ __forceinline__ void miller_eval_lane(
+    uint32_t* s, const int32_t* const* X, const int32_t* const* Y,
+    const int32_t* const* Z, const int32_t* const* lines, const bool* skip,
+    Grp g) {
+  uint32_t *f = s, *L = s + kF12, *E = s + 2 * kF12;
+  // E[k] = (Z^2 -> Z^3, X Z, Y)
+#pragma unroll 1
+  for (int v = g.rank; v < 6; v += kGroup) {
+    const int k = v / 3, q = v % 3;
+    uint32_t a[NF], b[NF];
+    load<NF>(a, (q == 2 ? Y : q == 1 ? X : Z)[k]);
+    if (q < 2) {
+      load<NF>(b, Z[k]);
+      mul<NF>(a, a, b);
+    }
+    copy<NF>(E + 3 * NF * k + NF * q, a);
+  }
+  g.sync();
+#pragma unroll 1
+  for (int k = g.rank; k < 2; k += kGroup) {
+    uint32_t a[NF], b[NF];
+    copy<NF>(a, E + 3 * NF * k);
+    load<NF>(b, Z[k]);
+    mul<NF>(a, a, b);
+    copy<NF>(E + 3 * NF * k, a);
+  }
+#pragma unroll 1
+  for (int w = g.rank; w < kF12; w += kGroup)
+    f[w] = w < NF ? Field<NF>::one(w) : 0;
+  g.sync();
+  int idx = 0;
+#pragma unroll 1
+  for (int b = kMillerTop - 1; b >= 0; b--) {
+    f12_sqr_g(f, f, g);
+#pragma unroll 1
+    for (int step = 0; step < 1 + ((kMillerBits >> b) & 1); step++) {
+      // both pairs' lines at P: 12 Fp products
+#pragma unroll 1
+      for (int v = g.rank; v < 12; v += kGroup) {
+        const int k = v / 6, w = v % 6;   // w = 2 q + c
+        uint32_t a[NF], e[NF];
+        load<NF>(a, lines[k] + idx * kLineWords + NF * w);
+        copy<NF>(e, E + 3 * NF * k + NF * (w >> 1));
+        mul<NF>(a, a, e);
+        copy<NF>(L + 6 * NF * k + NF * w, a);
+      }
+      g.sync();
+#pragma unroll 1
+      for (int k = 0; k < 2; k++)
+        if (!skip[k]) f12_mul_014_g(f, f, L + 6 * NF * k, g);
+      idx++;
+    }
+  }
+  conj_g(f, f, g);
+}
+
+// One lane of K-c: out = f^((p^12 - 1)/r) in s[0, 144) (s holds 4 Fp12).
+// gam: the gammas of p^1, p^2, p^3 (6 Fp2 each). The easy part
+// conj(f) f^-1, then ^(p^2 + 1); the hard part (p^4 - p^2 + 1)/r
+// = c (x - 1)(x + p)(x^2 + p^2 - 1) + 1 with c = (x - 1)/3 (exactly the
+// reference's exponent): a = m^c, b = a^(x-1), e = b^(x+p),
+// out = e^(x^2 + p^2 - 1) m, every power of x by |x| and a conjugation.
+// The one inverse (f12_inv, its Fp inverse by the binary extended Euclid
+// algorithm) runs in every thread of the group (the same instructions;
+// rank 0 stores it).
+__device__ __forceinline__ void final_exp_lane(uint32_t* s, const int32_t* f,
+                                               const int32_t* gam, Grp g) {
   constexpr int G = 6 * 2 * NF;  // words of one k's gammas
-  Fp12 t, m;
-  f12_inv(&t, &f);
-  f12_conj(m, f);
-  f12_mul(&t, &m, &t);                     // f^(p^6 - 1)
-  f12_frobenius(&m, &t, gam + G, false);
-  f12_mul(&m, &m, &t);                     // ^(p^2 + 1)
-  Fp12 g[4];
-  g[0] = m;
+  uint32_t *R = s, *M = s + kF12, *A = s + 2 * kF12, *B = s + 3 * kF12;
 #pragma unroll 1
-  for (int k = 1; k < 4; k++) f12_frobenius(&g[k], &m, gam + (k - 1) * G,
-                                            k & 1);
-  Fp12 table[16];
-  f12_set_one(table[0]);
+  for (int w = g.rank; w < kF12; w += kGroup) A[w] = (uint32_t)f[w];
+  {
+    Fp12 x, t;
+    uint32_t* xw = &x.c[0].c[0].c0[0];
 #pragma unroll 1
-  for (int s = 1; s < 16; s++) {
-    const int low = s & -s;
-    int i = 0;
-    while (!((low >> i) & 1)) i++;
-    f12_mul(&table[s], &table[s ^ low], &g[i]);
+    for (int w = 0; w < kF12; w++) xw[w] = (uint32_t)f[w];
+    f12_inv(&t, &x);
+    const uint32_t* tw = &t.c[0].c[0].c0[0];
+    if (g.rank == 0) {
+#pragma unroll 1
+      for (int w = 0; w < kF12; w++) B[w] = tw[w];
+    }
   }
-  f12_set_one(out);
-#pragma unroll 1
-  for (int j = 0; j < n_sel; j++) {
-    f12_sqr(&out, &out);
-    const int s = sel[j];
-    if (s) f12_mul(&out, &out, &table[s]);
-  }
+  g.sync();
+  conj_g(A, A, g);
+  f12_mul_g(A, A, B, g);                     // t = f^(p^6 - 1)
+  frob_g(B, A, gam + G, false, g);
+  f12_mul_g(M, B, A, g);                     // m = t^(p^2 + 1)
+  cyc_pow_g(A, M, kHardCBits, kHardCTop, g);
+  conj_g(A, A, g);                           // a = m^c
+  cyc_pow_g(B, A, kMillerBits, kMillerTop, g);
+  conj_g(B, B, g);
+  conj_g(R, A, g);
+  f12_mul_g(B, B, R, g);                     // b = a^x a^-1
+  cyc_pow_g(A, B, kMillerBits, kMillerTop, g);
+  conj_g(A, A, g);
+  frob_g(R, B, gam, true, g);
+  f12_mul_g(A, A, R, g);                     // e = b^x b^p
+  cyc_pow_g(B, A, kMillerBits, kMillerTop, g);
+  cyc_pow_g(R, B, kMillerBits, kMillerTop, g);  // e^(x^2)
+  frob_g(B, A, gam + G, false, g);
+  f12_mul_g(R, R, B, g);
+  conj_g(B, A, g);
+  f12_mul_g(R, R, B, g);                     // e^(x^2 + p^2 - 1)
+  f12_mul_g(R, R, M, g);
 }
 
 // ---- K-a: the G2 ladder (K3's, csrc/g1.cuh, over Fp2) ----

@@ -1,6 +1,8 @@
 """The pairing kernels (csrc/pairing_kernels.cu on csrc/tower.cuh) with
-their plain PyTorch versions: K-a `g2_scalar_mul`, K-b `pairing_miller`
-and K-c `pairing_final_exp`.
+their plain PyTorch versions: K-a `g2_scalar_mul`, K-b in two parts
+(`pairing_lines`, the G2 half of the Miller loop, and `pairing_miller_eval`,
+its evaluation at the G1 points; `pairing_miller` runs both) and K-c
+`pairing_final_exp`.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. Each launch adds one to
@@ -13,23 +15,31 @@ K-a replaces `g2.ops.scalar_mul` of kzg_tpu/kzg/settings.py:60-66 (plain
 jnp in the JAX package: a 4-bit window ladder on the masked Jacobian
 formulas): per lane [k]Q on E'(Fp2) from the 64 signed digits of
 fr.scalar_windows_signed, K3's ladder (csrc/g1.cuh) over Fp2 with the
-complete projective formulas for a = 0, b3 = 3 b' = 12 (1 + u).
+complete projective formulas for a = 0, b3 = 3 b' = 12 (1 + u). No path
+runs it since the batched check took its bilinear form.
 
 K-b replaces the Miller loops of kzg_tpu/curve/pairing_device.py:97-205
 (plain jnp): per lane f = f_{|x|,Qa}(Pa) f_{|x|,Qb}(Pb), conjugated for
-the negative x, sharing the squarings of f. It runs on the twist: T in
-Jacobian Fp2 coordinates, the tangent and chord lines scaled by factors
-in Fp2 (which the final exponentiation kills) into the sparse form
-l0 + (l1 xP) v + (l4 yP) v w of the tower. Its f therefore differs from
-the reference's Miller value by such factors; only after the final
-exponentiation do the two agree.
+the negative x, sharing the squarings of f. It runs on the twist: the
+lines part walks T over Jacobian Fp2 coordinates and emits the tangent
+and chord lines, scaled by factors in Fp2, as (l0, l1, l4); it depends
+on Q alone, so the batched check computes the lines of its fixed G2
+points once. The evaluation multiplies f by l0 Z^3 + (l1 X Z) v + (l4 Y)
+v w for P = (X, Y, Z): the line at the affine P times Z^3, an Fp factor.
+The final exponentiation kills both factors, so f differs from the
+reference's Miller value; only after it do the two agree.
 
 K-c replaces the final exponentiation of
 kzg_tpu/curve/pairing_device.py:252-312 (plain jnp): the easy part
-conj(f) f^-1, then ^(p^2 + 1), and the hard part as one joint ladder over
-the base-p digits of (p^4 - p^2 + 1)/r with a 16-entry table of products
-of Frobenius images; the gammas of the Frobenius maps and the ladder's
-digit selectors are computed here on the host and passed in.
+conj(f) f^-1, then ^(p^2 + 1), and the reference's hard exponent
+d = (p^4 - p^2 + 1)/r as the x-chain d = c (x - 1)(x + p)(x^2 + p^2 - 1)
++ 1 with c = (x - 1)/3 (exact, since x = 1 mod 3): powers by |x| and |c|
+on cyclotomic squarings, Frobenius maps and conjugations; the gammas of
+the Frobenius maps are computed here on the host and passed in.
+
+K-b's evaluation and K-c run a lane on a warp, its Fp12 products spread
+over the 32 threads (a warp was faster than 8 or 16 threads a lane at the
+verification path's 128 lanes, PERF.md).
 """
 
 from __future__ import annotations
@@ -41,27 +51,21 @@ import torch
 
 from .. import build
 from ..field import fp
-from ..field.constants import BLS_X, FP_MODULUS, FR_MODULUS
+from ..field.constants import BLS_X, FP_MODULUS
 from ..field.kernels import check_words, stream_of
 from . import tower as T
 from .weierstrass import JacobianPoint
 
-LAUNCHES = {"g2_scalar_mul": 0, "pairing_miller": 0, "pairing_final_exp": 0}
+LAUNCHES = {"g2_scalar_mul": 0, "pairing_lines": 0,
+            "pairing_miller_eval": 0, "pairing_final_exp": 0}
 
 NP = fp.N_WORDS
 F12_WORDS = 2 * 3 * 2 * NP      # 144 words an Fp12 element
 MILLER_BITS = bin(-BLS_X)[3:]   # |x| below its leading bit, MSB first
-
-# the hard part (p^4 - p^2 + 1)/r in base p: h = l3 p^3 + l2 p^2 + l1 p
-# + l0, and the joint ladder's selectors, MSB first: bit i of sel[j] is
-# bit (nbits - 1 - j) of l_i
-_HARD = (FP_MODULUS ** 4 - FP_MODULUS ** 2 + 1) // FR_MODULUS
-HARD_DIGITS = tuple((_HARD // FP_MODULUS ** i) % FP_MODULUS
-                    for i in range(4))
-_NB = max(d.bit_length() for d in HARD_DIGITS)
-HARD_SELECTORS = tuple(
-    sum(((d >> (_NB - 1 - j)) & 1) << i for i, d in enumerate(HARD_DIGITS))
-    for j in range(_NB))
+N_LINES = len(MILLER_BITS) + MILLER_BITS.count("1")   # 68 lines a point
+# the hard part's c = (x - 1)/3 < 0 by its absolute value: x = 1 mod 3 and
+# (p^4 - p^2 + 1)/r = c (x - 1)(x + p)(x^2 + p^2 - 1) + 1
+HARD_C = (-BLS_X + 1) // 3
 
 
 def reset_launches() -> None:
@@ -97,11 +101,6 @@ def frobenius_gammas(device) -> torch.Tensor:
     vals = [list(frobenius_gamma_ints(k)) for k in (1, 2, 3)]
     return fp.from_int(np.asarray(vals, dtype=object).reshape(3, 2, 3, 2),
                        device).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
-def hard_selectors(device) -> torch.Tensor:
-    return torch.tensor(HARD_SELECTORS, dtype=torch.int32, device=device)
 
 
 # ---- plain versions ----
@@ -240,52 +239,67 @@ def _add_step(t, xq, yq):
     return _renorm_all(X3, Y3, Z3), (RX - YZ3, -r, Z3)
 
 
-def _line(l, xp, yp):
-    """The sparse line l0 + (l1 xP) v + (l4 yP) v w as a dense Fp12."""
-    l0, l1, l4 = l
-    a, b = T.f2_mul_fp(torch.stack((l1, l4)),
-                       torch.stack((xp, yp))).unbind(0)
-    z = torch.zeros_like(l0)
-    return T.f12(T.f6(l0, a, z), T.f6(z, b, z))
+def pairing_lines_plain(qx, qy) -> torch.Tensor:
+    """The lines of affine G2 points (n, 2, 12) words:
+    (n, N_LINES, 3, 2, 12) words, (l0, l1, l4) of each doubling and
+    addition in the loop's order."""
+    xq, yq = T.from_words(qx), T.from_words(qy)
+    one2 = T.f2(T._one(xq.device), torch.zeros_like(T._one(xq.device)))
+    t = (xq, yq, one2.expand(xq.shape))
+    lines = []
+    for bit in MILLER_BITS:
+        t, l = _dbl_step(t)
+        lines.append(torch.stack(l, -3))
+        if bit == "1":
+            t, l = _add_step(t, xq, yq)
+            lines.append(torch.stack(l, -3))
+    return T.to_words(torch.stack(lines, -4)).contiguous()
 
 
-def _g1_affine(p: JacobianPoint):
-    x, y, z = (T.from_words(c) for c in p)
-    zi = T.fp_inv(z)
-    zi2 = T.mul(zi, zi)
-    zi3 = T.mul(zi2, zi)
-    return T.mul(torch.stack((x, y)), torch.stack((zi2, zi3))).unbind(0)
+def pairing_miller_eval_plain(a1: JacobianPoint, a_lines, a2inf,
+                              b1: JacobianPoint, b_lines, b2inf):
+    n = a1.x.shape[0]
+    dev = a1.x.device
+    one12 = T.f12_one((n,), dev)
+    zero2 = torch.zeros_like(one12[:, 0, 0])
+    skip, evals = [], []
+    for p, lines, inf in ((a1, a_lines, a2inf), (b1, b_lines, b2inf)):
+        skip.append((fp.is_zero(p.z) | inf.bool())[:, None, None, None, None])
+        x, y, z = (T.from_words(c) for c in p)
+        z3, xz = T.mul(torch.stack((T.mul(z, z), x)),
+                       torch.stack((z, z))).unbind(0)
+        # every line at P, scaled by Z^3: (l0 Z^3, l1 X Z, l4 Y)
+        e = torch.stack((z3, xz, y), -2)[:, None, :, None, :]
+        evals.append(T.mul(T.from_words(lines), e).unbind(-3))
+    f = one12
+    idx = 0
+    for bit in MILLER_BITS:
+        f = T.f12_sqr(f)
+        for _ in range(1 + (bit == "1")):
+            for k in range(2):
+                l0, l1, l4 = (v[:, idx] for v in evals[k])
+                line = T.f12(T.f6(l0, l1, zero2), T.f6(zero2, l4, zero2))
+                f = T.f12_mul(f, torch.where(skip[k], one12, line))
+            idx += 1
+    return T.to_words(T.f12_conj(f)).contiguous()
 
 
 def pairing_miller_plain(a1: JacobianPoint, a2x, a2y, a2inf,
                          b1: JacobianPoint, b2x, b2y, b2inf):
+    lines = pairing_lines_plain(torch.cat((a2x, b2x)), torch.cat((a2y, b2y)))
     n = a1.x.shape[0]
-    dev = a1.x.device
-    pa, pb = _g1_affine(a1), _g1_affine(b1)
-    xp = torch.stack((pa[0], pb[0]))                    # (2, n, L)
-    yp = torch.stack((pa[1], pb[1]))
-    xq = T.from_words(torch.stack((a2x, b2x)))          # (2, n, 2, L)
-    yq = T.from_words(torch.stack((a2y, b2y)))
-    skip = torch.stack((fp.is_zero(a1.z) | a2inf.bool(),
-                        fp.is_zero(b1.z) | b2inf.bool()))
-    skip = skip[..., None, None, None, None]
-    one12 = T.f12_one((n,), dev)
-    one2 = T.f2(T._one(dev), torch.zeros_like(T._one(dev)))
-    t = (xq, yq, one2.expand(xq.shape))
-    f = one12
+    return pairing_miller_eval_plain(a1, lines[:n], a2inf, b1, lines[n:],
+                                     b2inf)
 
-    def mul_lines(f, l):
-        lines = torch.where(skip, one12, _line(l, xp, yp))
-        return T.f12_mul(T.f12_mul(f, lines[0]), lines[1])
 
-    for bit in MILLER_BITS:
-        f = T.f12_sqr(f)
-        t, l = _dbl_step(t)
-        f = mul_lines(f, l)
+def _cyc_pow(m, e: int):
+    """m^e for m in the cyclotomic subgroup, e > 0 static."""
+    acc = m
+    for bit in bin(e)[3:]:
+        acc = T.f12_cyclotomic_sqr(acc)
         if bit == "1":
-            t, l = _add_step(t, xq, yq)
-            f = mul_lines(f, l)
-    return T.to_words(T.f12_conj(f)).contiguous()
+            acc = T.f12_mul(acc, m)
+    return acc
 
 
 def pairing_final_exp_plain(f):
@@ -294,18 +308,14 @@ def pairing_final_exp_plain(f):
     a = T.from_words(f)
     t = T.f12_mul(T.f12_conj(a), T.f12_inv(a))         # f^(p^6 - 1)
     m = T.f12_mul(T.frobenius(t, g[1], False), t)       # ^(p^2 + 1)
-    gs = [m, T.frobenius(m, g[0], True), T.frobenius(m, g[1], False),
-          T.frobenius(m, g[2], True)]
-    table = [T.f12_one(a.shape[:-4], dev)]
-    for s in range(1, 16):
-        low = s & -s
-        table.append(T.f12_mul(table[s ^ low], gs[low.bit_length() - 1]))
-    acc = table[0]
-    for sel in HARD_SELECTORS:
-        acc = T.f12_sqr(acc)
-        if sel:
-            acc = T.f12_mul(acc, table[sel])
-    out = T.to_words(acc).contiguous()
+    x = -BLS_X
+    a = T.f12_conj(_cyc_pow(m, HARD_C))                 # m^c
+    b = T.f12_mul(T.f12_conj(_cyc_pow(a, x)), T.f12_conj(a))  # a^(x - 1)
+    e = T.f12_mul(T.f12_conj(_cyc_pow(b, x)),
+                  T.frobenius(b, g[0], True))           # b^(x + p)
+    r = T.f12_mul(_cyc_pow(_cyc_pow(e, x), x), T.frobenius(e, g[1], False))
+    r = T.f12_mul(T.f12_mul(r, T.f12_conj(e)), m)      # e^(x^2+p^2-1) m
+    out = T.to_words(r).contiguous()
     return out, T.f12_is_one(out)
 
 
@@ -347,40 +357,77 @@ def g2_scalar_mul(p: JacobianPoint, digits) -> JacobianPoint:
     return out
 
 
-def pairing_miller(a1: JacobianPoint, a2x, a2y, a2inf, b1: JacobianPoint,
-                   b2x, b2y, b2inf) -> torch.Tensor:
-    """K-b: per lane the two-pair Miller value f_{|x|,Qa}(Pa)
-    f_{|x|,Qb}(Pb), conjugated (x < 0), as Montgomery words
-    (n, 2, 3, 2, 12). G1 points (n, 12) Jacobian (made affine in the
-    kernel, one Fermat inverse a lane); G2 points affine (n, 2, 12) with
-    bool infinity flags (n,). A pair with a point at infinity contributes
-    1 (kzg_tpu/curve/pairing_device.py:341-357). Replaces the Miller loops
-    of kzg_tpu/curve/pairing_device.py:97-205."""
+def pairing_lines(qx, qy) -> torch.Tensor:
+    """K-b's lines part: affine G2 points (n, 2, 12) words (a point at
+    infinity gives lines of no use; the evaluation skips it) ->
+    (n, N_LINES, 3, 2, 12) words, one thread a point."""
+    if qx.device.type == "cpu":
+        return pairing_lines_plain(qx, qy)
+    n = qx.shape[0]
+    qx, qy = qx.contiguous(), qy.contiguous()
+    for c in (qx, qy):
+        _check_f("pairing_lines", c, n, (2,))
+    out = torch.empty((n, N_LINES, 3, 2, NP), dtype=torch.int32,
+                      device=qx.device)
+    if n:
+        lib = build.library("pairing_kernels")
+        LAUNCHES["pairing_lines"] += 1
+        build.check(lib.kzg_pairing_lines(out.data_ptr(), qx.data_ptr(),
+                                          qy.data_ptr(), n, stream_of(out)),
+                    "pairing_lines")
+    return out
+
+
+def pairing_miller_eval(a1: JacobianPoint, a_lines, a2inf,
+                        b1: JacobianPoint, b_lines, b2inf) -> torch.Tensor:
+    """K-b's evaluation: per lane the two-pair Miller value, conjugated
+    (x < 0), as Montgomery words (n, 2, 3, 2, 12), of G1 points (n, 12)
+    Jacobian and the lines of their G2 points ((n or 1, N_LINES, 3, 2, 12)
+    words: one set a lane, or one set for all lanes), with bool infinity
+    flags (n,) for the G2 points. A pair with a point at infinity
+    contributes 1 (kzg_tpu/curve/pairing_device.py:341-357)."""
     if a1.x.device.type == "cpu":
-        return pairing_miller_plain(a1, a2x, a2y, a2inf, b1, b2x, b2y, b2inf)
+        return pairing_miller_eval_plain(a1, a_lines, a2inf, b1, b_lines,
+                                         b2inf)
     n = a1.x.shape[0]
     pts = [c.contiguous() for c in (*a1, *b1)]
     for c in pts:
-        _check_f("pairing_miller", c, n, ())
-    g2s = [c.contiguous() for c in (a2x, a2y, b2x, b2y)]
-    for c in g2s:
-        _check_f("pairing_miller", c, n, (2,))
+        _check_f("pairing_miller_eval", c, n, ())
+    lines = [t.contiguous() for t in (a_lines, b_lines)]
+    for t in lines:
+        _check_f("pairing_miller_eval", t, t.shape[0], (N_LINES, 3, 2))
+        if t.shape[0] not in (1, n) or t.device != a1.x.device:
+            raise ValueError("pairing_miller_eval: lines must be (n or 1, "
+                             f"{N_LINES}, 3, 2, 12) on the points' device")
     flags = [f.to(torch.int32).contiguous() for f in (a2inf, b2inf)]
     for f in flags:
         if f.shape != (n,) or f.device != a1.x.device:
-            raise ValueError("pairing_miller: infinity flags must be (n,)")
+            raise ValueError("pairing_miller_eval: infinity flags must be "
+                             "(n,)")
+    bcast = sum(1 << k for k, t in enumerate(lines) if t.shape[0] == 1)
     out = torch.empty((n, 2, 3, 2, NP), dtype=torch.int32,
                       device=a1.x.device)
     if n:
         lib = build.library("pairing_kernels")
-        LAUNCHES["pairing_miller"] += 1
-        build.check(lib.kzg_pairing_miller(
+        LAUNCHES["pairing_miller_eval"] += 1
+        build.check(lib.kzg_pairing_miller_eval(
             out.data_ptr(), *(c.data_ptr() for c in pts[:3]),
-            g2s[0].data_ptr(), g2s[1].data_ptr(), flags[0].data_ptr(),
-            *(c.data_ptr() for c in pts[3:]), g2s[2].data_ptr(),
-            g2s[3].data_ptr(), flags[1].data_ptr(), n, stream_of(out)),
-            "pairing_miller")
+            lines[0].data_ptr(), flags[0].data_ptr(),
+            *(c.data_ptr() for c in pts[3:]), lines[1].data_ptr(),
+            flags[1].data_ptr(), bcast, n, stream_of(out)),
+            "pairing_miller_eval")
     return out
+
+
+def pairing_miller(a1: JacobianPoint, a2x, a2y, a2inf, b1: JacobianPoint,
+                   b2x, b2y, b2inf) -> torch.Tensor:
+    """K-b on a lane's own G2 points: the lines of all 2n affine G2 points
+    (n, 2, 12) in one launch, then the evaluation at the G1 points (n, 12)
+    Jacobian; bool infinity flags (n,) for the G2 points. Replaces the
+    Miller loops of kzg_tpu/curve/pairing_device.py:97-205."""
+    n = a1.x.shape[0]
+    lines = pairing_lines(torch.cat((a2x, b2x)), torch.cat((a2y, b2y)))
+    return pairing_miller_eval(a1, lines[:n], a2inf, b1, lines[n:], b2inf)
 
 
 def pairing_final_exp(f: torch.Tensor):
@@ -397,10 +444,8 @@ def pairing_final_exp(f: torch.Tensor):
     if n:
         lib = build.library("pairing_kernels")
         gam = frobenius_gammas(f.device)
-        sel = hard_selectors(f.device)
         LAUNCHES["pairing_final_exp"] += 1
         build.check(lib.kzg_pairing_final_exp(
-            out.data_ptr(), ok.data_ptr(), f.data_ptr(), gam.data_ptr(),
-            sel.data_ptr(), sel.numel(), n, stream_of(f)),
-            "pairing_final_exp")
+            out.data_ptr(), ok.data_ptr(), f.data_ptr(), gam.data_ptr(), n,
+            stream_of(f)), "pairing_final_exp")
     return out, ok.bool()

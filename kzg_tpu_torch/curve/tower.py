@@ -184,6 +184,30 @@ def f12_sqr(a):
     return renorm(f12(q - ab - f6_mul_v(ab), ab + ab))
 
 
+def f12_cyclotomic_sqr(a):
+    """a^2 for a in the cyclotomic subgroup (after the final
+    exponentiation's easy part), Granger-Scott: with
+    (z0, z4, z3) = a0, (z2, z1, z5) = a1, three Fp4 squarings of (z0, z1),
+    (z2, z3), (z4, z5), each (xi t1 + t0, t2 - t0 - t1) from the Fp2 squares
+    t0, t1, t2 of its halves and their sum; the 9 squares (2 Fp products
+    each) in one mul_lazy. z0' = 3 A0 - 2 z0, z1' = 3 A1 + 2 z1,
+    z4' = 3 B0 - 2 z4, z5' = 3 B1 + 2 z5, z2' = 3 xi C1 + 2 z2,
+    z3' = 3 C0 - 2 z3 (A, B, C the three Fp4 squares)."""
+    z0, z4, z3 = a[..., 0, :, :, :].unbind(-3)
+    z2, z1, z5 = a[..., 1, :, :, :].unbind(-3)
+    base = torch.stack((z0, z1, z0 + z1, z2, z3, z2 + z3, z4, z5, z4 + z5))
+    b0, b1 = base[..., 0, :], base[..., 1, :]
+    s, t = mul(torch.stack((b0 + b1, b0)),
+               torch.stack((b0 - b1, b1))).unbind(0)
+    sq = renorm(f2(s, 2 * t))
+    fp4 = [(f2_mul_xi(sq[3 * p + 1]) + sq[3 * p],
+            sq[3 * p + 2] - sq[3 * p] - sq[3 * p + 1]) for p in range(3)]
+    (a0, a1), (b0, b1), (c0, c1) = fp4
+    return renorm(f12(f6(3 * a0 - 2 * z0, 3 * b0 - 2 * z4, 3 * c0 - 2 * z3),
+                      f6(3 * f2_mul_xi(c1) + 2 * z2, 3 * a1 + 2 * z1,
+                         3 * b1 + 2 * z5)))
+
+
 def f12_conj(a):
     """Conjugation over Fp6: the p^6 Frobenius."""
     return f12(a[..., 0, :, :, :], -a[..., 1, :, :, :])

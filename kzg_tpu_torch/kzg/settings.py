@@ -6,9 +6,11 @@ Commitments, quotients and interpolation commitments are device work. The
 checks of one sample (`check_proof_single`, `check_proof_multi`) end in
 one pairing product on the host's native library
 (curve/pairing_native.py), as in the reference. `check_proof_multi_batch`
-checks N coset samples on the card: their interpolation commitments as one
-batched fixed-base MSM, [x_i^l]_2 on K-a, the N pairing products on K-b
-and K-c.
+checks N coset samples on the card in the bilinear form
+e(I_i - C - [x_i^l]pi_i, G2) e(pi_i, [s^l]_2) == 1: their interpolation
+commitments as one batched fixed-base MSM, [x_i^l]pi_i on K3, the N
+pairing products on K-b's evaluation and K-c, on the lines of G2 and
+[s^l]_2 that the settings compute once (K-b's lines part) and keep.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ import functools
 import torch
 
 from .. import poly
-from ..curve import g1, g2, pairing
+from ..curve import fp2, g1, pairing, pairing_device
 from ..curve.msm import fixed_base_tables, lin_comb_fixed
-from ..curve.pairing_device import pairings_product_is_one
+from ..curve.pairing_kernels import pairing_lines
 from ..curve.weierstrass import JacobianPoint
 from ..field import fp, fr
 from ..field.constants import FP_MODULUS, FR_MODULUS
@@ -52,6 +54,7 @@ class KZGSettings:
         self.secret_g1 = secret_g1
         self.secret_g2_affine = (None if secret_g2_affine is None
                                  else list(secret_g2_affine))
+        self._g2_lines = {}
 
     def _s2(self, i: int):
         if self.secret_g2_affine is None or \
@@ -59,6 +62,18 @@ class KZGSettings:
                 self.secret_g2_affine[i] is None:
             raise ValueError(f"these settings hold no [s^{i}]_2")
         return self.secret_g2_affine[i]
+
+    def g2_lines(self, l: int, device) -> torch.Tensor:
+        """The Miller loop's lines of G2 and [s^l]_2 (K-b's lines part, one
+        launch at the first call for this l and device, then kept):
+        (2, N_LINES, 3, 2, 12) words, 39,168 bytes."""
+        key = (l, str(device))
+        if key not in self._g2_lines:
+            pts = [host_ec.g2_generator(), self._s2(l)]
+            self._g2_lines[key] = pairing_lines(
+                fp2.from_int([q[0] for q in pts], device),
+                fp2.from_int([q[1] for q in pts], device))
+        return self._g2_lines[key]
 
     @functools.cached_property
     def secret_g1_tables(self) -> torch.Tensor:
@@ -157,11 +172,16 @@ class KZGSettings:
         xs: N host ints; ys: (N, l, 8), each row in its coset's natural
         order. Returns [bool] * N.
 
-        On the card: the N inverse FFTs (fr_fft_block), x_i^-1 (fr_batch_inv)
-        and its powers (K1), the N interpolation commitments as one
-        batched fixed-base MSM, a1 = [I_i(s)]_1 - C (g1_add), x_i^l
-        (fr_pow), [x_i^l]_2 (K-a), b2 = [s^l]_2 - [x_i^l]_2 (G2 ops on K1),
-        and e(a1, G2) e(proof_i, b2) == 1 (K-b, K-c)."""
+        On the card, in the bilinear form of c-kzg-4844's
+        verify_cell_kzg_proof_batch: e(I_i - C, G2) e(pi_i, [s^l - x_i^l]_2)
+        is e(I_i - C - [x_i^l]pi_i, G2) e(pi_i, [s^l]_2), the same element
+        of GT, so each lane's verdict is the reference's (a point at
+        infinity contributes 1 on both sides). The N inverse FFTs
+        (fr_fft_block), x_i^-1 (fr_batch_inv) and its powers (K1), the N
+        interpolation commitments as one batched fixed-base MSM, x_i^l
+        (fr_pow), [x_i^l]pi_i (fr_signed_windows, K3), a1 = I_i - C -
+        [x_i^l]pi_i (two g1_add), then K-b's evaluation on the cached lines
+        of G2 and [s^l]_2 (every lane reads the same) and K-c."""
         n_samples, l = ys.shape[0], ys.shape[1]
         if len(xs) != n_samples:
             raise ValueError("xs/ys length mismatch")
@@ -170,14 +190,10 @@ class KZGSettings:
         is1 = self._interp_commit(ys, fr.batch_inv(x))            # (N,)
         c = JacobianPoint(*(t.reshape(1, 12).expand(n_samples, 12)
                             for t in commitment))
-        a1 = g1.ops_kernel.sub(is1, c)               # -(C - [I(s)]_1)
-        xg2 = g2.mul(g2.generator((n_samples,), dev),
-                     fr.pow_static(x, l))                   # [x^l]_2
-        s2l = g2.from_affine_ints([self._s2(l)], dev)
-        b2 = g2.sub(JacobianPoint(*(t.expand_as(u) for t, u in zip(s2l, xg2))),
-                    xg2)
-        gen = g2.generator((n_samples,), dev)
-        ginf = torch.zeros((n_samples,), dtype=torch.bool, device=dev)
-        ok = pairings_product_is_one(a1, (gen.x, gen.y, ginf), proofs,
-                                     g2.to_affine(b2))
+        xpi = g1.mul(proofs, fr.pow_static(x, l))                 # [x^l]pi
+        a1 = g1.ops_kernel.sub(g1.ops_kernel.sub(is1, c), xpi)
+        lines = self.g2_lines(l, dev)
+        finite = torch.zeros((n_samples,), dtype=torch.bool, device=dev)
+        ok = pairing_device.product_is_one_on_lines(
+            a1, lines[:1], finite, proofs, lines[1:], finite)
         return [bool(v) for v in ok.cpu()]

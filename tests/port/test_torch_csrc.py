@@ -221,8 +221,9 @@ def test_route_generic_entry_points(fn, kernel, argc):
 
 
 @pytest.mark.parametrize("fn,argc", [("kzg_g2_scalar_mul", 10),
-                                     ("kzg_pairing_miller", 15),
-                                     ("kzg_pairing_final_exp", 8)])
+                                     ("kzg_pairing_lines", 5),
+                                     ("kzg_pairing_miller_eval", 14),
+                                     ("kzg_pairing_final_exp", 6)])
 def test_pairing_entry_points(fn, argc):
     """The pairing kernels' C entry points are bound with their argument
     counts, build.py compiles their source, and each launches its kernel
@@ -238,29 +239,27 @@ def test_pairing_entry_points(fn, argc):
 
 def test_pairing_constants():
     """The Miller loop's bits are |x| (x < 0, so the kernel and its plain
-    version conjugate), the Fermat exponent is p - 2, the hard part's
-    digits and selectors give (p^4 - p^2 + 1)/r, and the kernel's block
-    and table sizes fit a block's shared memory."""
+    version conjugate), a point has as many lines as the loop has steps,
+    the inverse's last factor is R^3 (a^-1 R^3 / R = x^-1 R for a = x R),
+    the hard part's bits are |x| and |c|, and the kernels' block and table
+    sizes fit a block's shared memory."""
     from kzg_tpu_torch.curve import pairing_kernels as pk
-    from kzg_tpu_torch.field.constants import BLS_X, FR_MODULUS
+    from kzg_tpu_torch.field.constants import BLS_X
 
     tower = source("tower.cuh")
     m = re.search(r"kMillerBits = 0x([0-9a-f]+)ull;", tower)
     assert int(m.group(1), 16) == -BLS_X and BLS_X < 0
     assert f"kMillerTop = {(-BLS_X).bit_length() - 1};" in tower
     assert pk.MILLER_BITS == format(-BLS_X, "b")[1:]
-    assert "f12_conj(f, f);" in tower
-    assert words_after(tower, "constexpr uint32_t E[NF]", 12) == \
-        fp.SPEC.modulus - 2
-    assert f"for (int i = {(fp.SPEC.modulus - 2).bit_length() - 2}; " \
-        "i >= 0; i--)" in tower
-    p = fp.SPEC.modulus
-    assert sum(d * p ** i for i, d in enumerate(pk.HARD_DIGITS)) == \
-        (p ** 4 - p ** 2 + 1) // FR_MODULUS
-    nb = len(pk.HARD_SELECTORS)
-    for i, d in enumerate(pk.HARD_DIGITS):
-        assert sum(((s >> i) & 1) << (nb - 1 - j)
-                   for j, s in enumerate(pk.HARD_SELECTORS)) == d
+    assert f"kLines = {pk.N_LINES};" in tower
+    assert pk.N_LINES == 63 + 5
+    assert "conj_g(f, f, g);" in tower
+    m = re.search(r"kHardCBits = 0x([0-9a-f]+)ull;", tower)
+    assert int(m.group(1), 16) == pk.HARD_C
+    assert f"kHardCTop = {pk.HARD_C.bit_length() - 1};" in tower
+    assert not re.search(r"Fp12 \w+\[16\]", tower)     # no table
+    assert words_after(tower, "constexpr uint32_t kR3[NF]", 12) == \
+        pow(2, 3 * 384, fp.SPEC.modulus)
     kernels = source("pairing_kernels.cu")
     assert "constexpr int kSmem = kThreads * kzg::T2W * 4;" in kernels
     assert "constexpr int T2W = 8 * P2W;" in tower
@@ -268,6 +267,39 @@ def test_pairing_constants():
     threads = int(re.search(r"constexpr int kThreads = (\d+);",
                             kernels).group(1))
     assert threads * 8 * 6 * 12 * 4 <= 232448
+    # a warp's scratch: 18 operand pairs (48 words), 54 Fp products, 9
+    # Fp2 tier values; a block of kBlock / kGroup lanes, a warp each
+    assert "constexpr int kGrpWords = 18 * 48 + 54 * NF + 9 * 2 * NF;" \
+        in tower
+    assert "constexpr int kGroup = 32;" in tower
+    assert "constexpr int kLanesABlock = kBlock / kzg::kGroup;" in kernels
+    block = int(re.search(r"constexpr int kBlock = (\d+);",
+                          kernels).group(1))
+    grp_words = 18 * 48 + 54 * 12 + 9 * 24
+    lane_words = max(2 * 144 + 6 * 12, 4 * 144)
+    assert block % 32 == 0
+    assert block // 32 * (lane_words + grp_words) * 4 <= 232448
+
+
+def test_hard_part_decomposition():
+    """K-c's x-chain computes the reference's hard exponent exactly:
+    (p^4 - p^2 + 1)/r = c (x - 1)(x + p)(x^2 + p^2 - 1) + 1 with
+    c = (x - 1)/3, checked in host ints against the bits the kernel holds
+    (kMillerBits = |x|, kHardCBits = |c|), not its cube (the 3d of
+    Hayashida-Hayasaka-Teruya)."""
+    from kzg_tpu_torch.field.constants import FR_MODULUS
+
+    tower = source("tower.cuh")
+    x = -int(re.search(r"kMillerBits = 0x([0-9a-f]+)ull;", tower).group(1),
+             16)
+    c = -int(re.search(r"kHardCBits = 0x([0-9a-f]+)ull;", tower).group(1),
+             16)
+    p, r = fp.SPEC.modulus, FR_MODULUS
+    assert (x - 1) % 3 == 0 and c == (x - 1) // 3
+    d = (p ** 4 - p ** 2 + 1) // r
+    assert (p ** 4 - p ** 2 + 1) % r == 0
+    assert d == c * (x - 1) * (x + p) * (x * x + p * p - 1) + 1
+    assert d % 3 != 0
 
 
 def test_frobenius_gammas_host_derivation():

@@ -6,7 +6,12 @@ kzg_tpu pairing_device.final_exponentiation and the host's, K-b
 (`pairing_miller`)'s plain version followed by K-c against the recorded
 Miller loop + final exponentiation and against pairing(P, Q), the batched
 product check with an infinity lane and a corrupted lane, and the native
-host pairing against the Python one. Exact: canonical words and ints.
+host pairing against the Python one; K-c's x-chain pieces (the
+cyclotomic square against the general square, the powers by |x| and |c|
+against the host's pow) and K-b's split (the settings' cached lines of G2
+and [s^l]_2, then the evaluation and K-c, against the host pairing; one
+set of lines for all lanes against each lane's copy). Exact: canonical
+words and ints.
 
 The plain Fp12 chains cost about a second a call: the Miller loops and
 final exponentiations here run on 2-3 lanes, a handful of calls."""
@@ -28,6 +33,8 @@ from kzg_tpu_torch import convert
 from kzg_tpu_torch.curve import fp2, g1, pairing, pairing_device
 from kzg_tpu_torch.curve import pairing_kernels as pk
 from kzg_tpu_torch.curve import tower
+from kzg_tpu_torch.curve.weierstrass import JacobianPoint
+from kzg_tpu_torch.field import fp
 from kzg_tpu_torch.field.constants import FP_MODULUS
 from kzg_tpu_torch.utils import host_ec
 
@@ -144,3 +151,77 @@ def test_native_and_python_pairing_agree():
     got = [pairing.pairings_verify(*c) for c in cases]
     assert got == [pairing.pairings_verify_python(*c) for c in cases]
     assert got == [True, True, False, True]
+
+
+def easy_part(x: "jpairing.F12") -> "jpairing.F12":
+    """x^((p^6 - 1)(p^2 + 1)): an element of the cyclotomic subgroup."""
+    t = x.conj() * x.inv()
+    return t.pow(FP_MODULUS ** 2) * t
+
+
+def test_cyclotomic_sqr_matches_f12_sqr():
+    """Granger-Scott squaring equals the general square (and the host's)
+    on elements after the final exponentiation's easy part."""
+    m = [easy_part(to_jf12(v)) for v in random_f12_ints(150, 2)]
+    la = lazy(words(m))
+    got = tower.to_words(tower.f12_cyclotomic_sqr(la))
+    assert torch.equal(got, tower.to_words(tower.f12_sqr(la)))
+    assert [as_ref(v) for v in tower.f12_to_oracle(got)] == [v * v for v in m]
+
+
+@pytest.mark.parametrize("which", ["x", "c"])
+def test_hard_part_powers_match_host_pow(which):
+    """K-c's exponentiations by |x| and |c| on cyclotomic squarings equal
+    the host tower's pow."""
+    from kzg_tpu_torch.field.constants import BLS_X
+
+    e = -BLS_X if which == "x" else pk.HARD_C
+    m = easy_part(to_jf12(random_f12_ints(151, 1)[0]))
+    got = tower.to_words(pk._cyc_pow(lazy(words([m])), e))
+    assert as_ref(tower.f12_to_oracle(got)[0]) == m.pow(e)
+
+
+def test_fixed_lines_then_final_exp_match_host_pairing():
+    """The settings' cached lines of G2 and [s^l]_2 (K-b's lines part),
+    K-b's evaluation with every lane on the same lines (one pair flagged
+    off in each lane), then K-c, against the host pairing; a second call
+    returns the cached tensor."""
+    from port_helpers import CRS_SIZE, TEST_SECRET
+
+    from kzg_tpu_torch.kzg.settings import KZGSettings
+    from kzg_tpu_torch.kzg.setup import generate_testing_setup
+    from kzg_tpu_torch.ntt.domain import FFTSettings
+
+    s1, _, _, s2 = generate_testing_setup(TEST_SECRET, CRS_SIZE, CPU)
+    ks = KZGSettings(FFTSettings(5, CPU), s1, s2)
+    lines = ks.g2_lines(4, CPU)
+    assert lines.shape == (2, pk.N_LINES, 3, 2, 12)
+    assert ks.g2_lines(4, CPU) is lines
+    pts = [host_ec.g1_mul(G1, 1234567), host_ec.g1_mul(G1, 89)]
+    p = g1.from_affine_ints(pts, CPU)
+    f = pk.pairing_miller_eval(p, lines[:1], torch.tensor([False, True]),
+                               p, lines[1:], torch.tensor([True, False]))
+    out = tower.f12_to_oracle(pk.pairing_final_exp(f)[0])
+    assert out == [pairing.pairing(pts[0], G2),
+                   pairing.pairing(pts[1], ks._s2(4))]
+
+
+def test_miller_eval_on_shared_and_own_lines_agree():
+    """The evaluation on one set of lines for all lanes equals it on each
+    lane's own copy, at Jacobian G1 points with Z != 1."""
+    q = host_ec.g2_mul(G2, 77)
+    lines = pk.pairing_lines(fp2.from_int([q[0]], CPU),
+                             fp2.from_int([q[1]], CPU))
+    pts = [host_ec.g1_mul(G1, k) for k in (3, 5)]
+    z = [7, 11]
+    p = FP_MODULUS
+    a1 = JacobianPoint(*(fp.from_int(v, CPU) for v in (
+        [x * k * k % p for (x, _), k in zip(pts, z)],
+        [y * k ** 3 % p for (_, y), k in zip(pts, z)], z)))
+    off = torch.zeros(2, dtype=torch.bool)
+    shared = pk.pairing_miller_eval(a1, lines, off, a1, lines, ~off)
+    each = lines.expand(2, -1, -1, -1, -1)
+    own = pk.pairing_miller_eval(a1, each, off, a1, each, ~off)
+    assert torch.equal(shared, own)
+    got = tower.f12_to_oracle(pk.pairing_final_exp(shared)[0])
+    assert got == [pairing.pairing(v, q) for v in pts]

@@ -3,9 +3,12 @@ true and false flows of tests/test_kzg.py:40-73 (`check_proof_single`
 on the host pairing, beside kzg_tpu's own check on the same affine
 points; `check_proof_multi` beside kzg_tpu's recorded results), tampered
 proofs, and `check_proof_multi_batch` on tests/test_pairing_device.py:
-116-147's case (its plain versions on the CPU: K-a, K-b, K-c), which must
+116-147's case (its plain versions on the CPU: K3, K-b, K-c), which must
 give [True, True, False] as kzg_tpu's recorded batch does and agree with
-the per-sample host checks."""
+the per-sample host checks; in its bilinear form it must give False
+exactly on tampered cells, and the reference's verdict (its form on
+kzg_tpu's host pairing) on lanes with pi or I - C - [x^l]pi at
+infinity."""
 
 import numpy as np
 import pytest
@@ -114,3 +117,80 @@ def test_settings_without_g2_refuse_checks():
     prover = KZGSettings(FFTSettings(3, CPU), s1)
     with pytest.raises(ValueError, match="s\\^1"):
         prover.check_proof_single(None, None, 1, 1)
+
+
+# degree 12: each coset's proof depends on its x (at degree < 2 l, the
+# quotient by x^l - x0^l does not)
+WIDE_COEFFS = BATCH_COEFFS + [5, 6, 11, 12, 13]
+
+
+def batch_inputs(ks, coeffs_ints, xs):
+    """The commitment, the coset proofs (all at infinity below degree l)
+    and the true ys of each x."""
+    coeffs = fr.from_int(coeffs_ints, CPU)
+    commitment = ks.commit_to_poly(coeffs)
+    if len(coeffs_ints) > BATCH_M:
+        proofs = [ks.compute_proof_multi(coeffs, x, BATCH_M) for x in xs]
+        batch = JacobianPoint(*(torch.stack([p[i] for p in proofs])
+                                for i in range(3)))
+    else:
+        batch = g1.infinity((len(xs),), CPU)
+    w = pow(7, (R - 1) // BATCH_M, R)
+    ys = fr.from_int([[eval_poly(coeffs_ints, x * pow(w, i, R) % R, R)
+                       for i in range(BATCH_M)] for x in xs], CPU)
+    return commitment, batch, ys
+
+
+def reference_verdict(ks, commitment, proof, x: int, ys_row) -> bool:
+    """The reference's form on kzg_tpu's exact host pairing:
+    e(I - C, G2) e(pi, [s^l - x^l]_2) == 1
+    (kzg_tpu/kzg/settings.py:189-225)."""
+    from kzg_tpu.curve import pairing as jpairing
+
+    ip = affine(ks._interp_commit(ys_row[None],
+                                  fr.from_int(pow(x, -1, R), CPU)))
+    a1 = host_ec.g1_sub(ip, affine(commitment))
+    g2x = host_ec.g2_mul(host_ec.g2_generator(), pow(x, BATCH_M, R))
+    b2 = host_ec.g2_sub(ks._s2(BATCH_M), g2x)
+    return jpairing.pairings_verify(a1, host_ec.g2_generator(), proof, b2)
+
+
+def test_check_proof_multi_batch_tampered_cells(ks):
+    """The bilinear form gives False exactly on the tampered cells: cell 1
+    carries cell 3's proof, one value of cell 4 is off by one."""
+    xs = BATCH_XS + [17, 19]
+    commitment, batch, ys = batch_inputs(ks, WIDE_COEFFS, xs)
+    assert ks.check_proof_multi_batch(commitment, batch, xs, ys) == \
+        [True] * 5
+    for c in batch:
+        c[1] = c[3]
+    ys[4, 2] = fr.add(ys[4, 2], fr.from_int(1, CPU))
+    assert ks.check_proof_multi_batch(commitment, batch, xs, ys) == \
+        [True, False, True, True, False]
+
+
+def test_check_proof_multi_batch_points_at_infinity(ks):
+    """Lane 1: pi at infinity; lane 2: pi = [x^-l](I - C), so that
+    I - C - [x^l]pi is at infinity; each verdict is the reference's, in
+    its form e(I - C, G2) e(pi, [s^l - x^l]_2) on the host. A polynomial
+    of degree < l has I = C and every proof at infinity: all True."""
+    xs = BATCH_XS
+    commitment, batch, ys = batch_inputs(ks, WIDE_COEFFS, xs)
+    for c in batch:
+        c[1] = 0
+    ip = affine(ks._interp_commit(ys[2:3], fr.from_int(pow(xs[2], -1, R),
+                                                       CPU)))
+    crafted = host_ec.g1_mul(host_ec.g1_sub(ip, affine(commitment)),
+                             pow(pow(xs[2], BATCH_M, R), -1, R))
+    for c, v in zip(batch, g1.from_affine_ints([crafted], CPU)):
+        c[2] = v[0]
+    got = ks.check_proof_multi_batch(commitment, batch, xs, ys)
+    want = [reference_verdict(ks, commitment,
+                              affine(JacobianPoint(*(c[i] for c in batch))),
+                              x, ys[i]) for i, x in enumerate(xs)]
+    assert got == want == [True, False, False]
+    low = [3, 1, 4, 1]
+    commitment, batch, ys = batch_inputs(ks, low, xs)
+    got = ks.check_proof_multi_batch(commitment, batch, xs, ys)
+    assert got == [reference_verdict(ks, commitment, None, x, ys[i])
+                   for i, x in enumerate(xs)] == [True] * 3
