@@ -128,7 +128,35 @@ Phases; any failure raises and the script exits non-zero with no result:
      points), K-b's evaluation and K-c at its 128 lanes, a warp a lane,
      each with its bound and its latency bound (the longest thread's
      chain of Fp product latencies on this run's data times the product's
-     measured latency).
+     measured latency);
+ 10. the EIP-4844 API at its width (4096 field elements a blob, a
+     sidecar of 6 blobs, Deneb's MAX_BLOBS_PER_BLOCK), its launches
+     counted as two paths (eth_setup, eth): EthSettings.insecure (one K3
+     launch), the Lagrange tables, blob -> commitment, evaluation,
+     compute_kzg_proof, verify_kzg_proof, the precompile,
+     compute_aggregate_kzg_proof and validate_blobs_sidecar. The
+     commitments must equal [p(s)]G with p(s) by the barycentric formula
+     on Python ints, y the host value, the proof [(p(s) - y)/(s - z)]G,
+     the aggregate proof its oracle over the host transcript; a tampered
+     y, proof, sidecar and blob are rejected; g1_horner,
+     g1_fixed_base_mul and g1_sum (and the rest of ETH_KERNELS) must
+     launch; the same calls at width 256 must give the plain path's
+     bytes; from_json of a file written from the setup must give its
+     points. Wall ms of each call, the aggregate proof's trace;
+ 11. the generic G1 FFT (fft_g1(..., in_subgroup=False), K3 and g1_add):
+     16 points off the r-torsion both ways against the host's radix-2
+     butterflies on the same twiddles (off the r-torsion the transform
+     is no DFT over Fr: [a]P depends on a mod ord(P)); at 128 and 4096
+     subgroup points equal to the GLV route; inverse(forward) at 4096
+     subgroup points the identity; one forward at 4096 launches K3 and
+     g1_add 12 times each and no GLV kernel; its ms beside the GLV
+     route's;
+ 12. persistence at the PeerDAS shape: the KZG settings and
+     FK20MultiSettings(n2=8192, l=64) saved and loaded; the loaded
+     settings' 128 proofs must equal the ones before; file bytes, save
+     and load seconds;
+ 13. examples/eth_blob_demo_torch.py and full_das_pipeline_torch.py at
+     their defaults, each in its own process, ending in its PASS line.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -140,6 +168,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -215,31 +244,67 @@ def once_ms(fn):
     return out, t0.elapsed_time(t1)
 
 
-def device_events(fn) -> list:
+# spin launches before and after every traced call: torch.profiler drops
+# the device records that fall outside its window as it places them, and
+# that placement drifts from the launches' true times the older the
+# process is, by an amount that differs between processes
+# (kzg_tpu_torch/tools/trace_loss.py counts the records lost; on an H100
+# the loss reached whole 10 ms calls about 300 s into a run), so each
+# side carries TRACE_BALLAST launches of about 0.5 ms each, and a trace
+# counts only when some of both sides survive
+TRACE_BALLAST = 100
+BALLAST_CYCLES = 1_000_000
+TRACE_TRIES = 3
+
+
+def device_events(fn, chrome_dir=None) -> list:
     """(name, start_us, end_us) of every device activity (kernels, copies)
-    of one call of fn, from torch.profiler's CUPTI trace."""
+    of one call of fn, from torch.profiler's CUPTI trace (written as a
+    Chrome trace into chrome_dir where given). A trace counts only when
+    it kept some of the ballast on both sides of the call, so that it
+    holds every record of the call; up to TRACE_TRIES calls are traced
+    for one that does, else the script fails."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    from kzg_tpu_torch.utils import profiling
+
+    def ballast():
+        for _ in range(TRACE_BALLAST):
+            torch.cuda._sleep(BALLAST_CYCLES)
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    for attempt in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        with profiling.trace(chrome_dir) as prof:
+            ballast()
+            fn()
+            torch.cuda.synchronize()
+            ballast()
+        ev = sorted(((e.name, e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda t: t[1])
+        spin = ["spin_kernel" in name for name, _, _ in ev]
+        mine = [i for i, is_spin in enumerate(spin) if not is_spin]
+        check(bool(mine), "a trace caught no device operation of its call")
+        before, after = sum(spin[:mine[0]]), sum(spin[mine[-1] + 1:])
+        if before and after:
+            return [ev[i] for i in mine]
+        log(f"    (a trace kept {before} and {after} of its {TRACE_BALLAST} "
+            f"ballast launches before and after the call, try "
+            f"{attempt + 1} of {TRACE_TRIES})")
+    check(False, "a trace lost device records past its ballast")
 
 
 def kernel_ms(fn, match: str, reps: int):
     """(mean device ms of one launch of the kernel whose name holds
-    `match`, launches the trace caught). fn launches it once a call. The
-    trace may miss some launches of a long kernel, so the mean is over
-    the ones it caught; (None, 0) when it caught none."""
+    `match`, launches the trace caught). fn launches it once a call."""
     fn()
     spans = device_events(lambda: [fn() for _ in range(reps)])
     mine = [e - s for name, s, e in spans if match in name]
-    return (sum(mine) / 1e3 / len(mine), len(mine)) if mine else (None, 0)
+    check(bool(mine), f"the trace caught no launch of {match}")
+    return sum(mine) / 1e3 / len(mine), len(mine)
 
 
 def busy_us(spans) -> float:
@@ -331,6 +396,7 @@ def plain_path():
              (toeplitz, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain),
              (msm, "g1_fixed_base_mul", gk.g1_fixed_base_mul_plain),
              (msm, "g1_sum", gk.g1_sum_plain),
+             (msm, "g1_horner", gk.g1_horner_plain),
              (multi, "g1_sum", gk.g1_sum_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -404,6 +470,434 @@ def max_abs_err(a, b) -> int:
     if isinstance(a, tuple):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+ETH_SECRET = 424242424242
+# Deneb's MAX_BLOBS_PER_BLOCK: the sidecar of the aggregate proof
+SIDECAR_BLOBS = 6
+# the width of the eth calls held against the plain path
+ETH_PLAIN_WIDTH = 256
+# the generic G1 FFT: points off the subgroup against the host, and the
+# sizes of subgroup points against the GLV route (the last one timed)
+GENERIC_OFF_POINTS = 16
+GENERIC_SIZES = (128, 4096)
+# the eth path's kernels: the insecure setup's K3, the Lagrange tables
+# (g1_window_table), the commitments and the quotient's commitment
+# (fr_signed_windows, g1_fixed_base_mul, g1_sum), the evaluation and the
+# quotient (fr_add_sub, mont_mul, fr_batch_inv, fr_pow), the aggregated
+# commitment over the decompressed commitments (lin_comb_g1: g1_add,
+# g1_sum, g1_horner)
+ETH_KERNELS = ("fr_signed_windows", "g1_fixed_base_mul", "g1_sum",
+               "g1_horner", "g1_add", "fr_add_sub", "mont_mul",
+               "fr_batch_inv", "fr_pow")
+
+
+def slope_ms(fn, *args) -> float:
+    """ms a call of fn(*args), as utils.benchloop.device_loop's slope
+    between 1 and 9 calls: on CUDA events where args hold a CUDA tensor,
+    else on the host's clock (an eth call ends by reading its result to
+    the host, so the host clock holds the whole of it)."""
+    from kzg_tpu_torch.utils.benchloop import device_loop
+
+    per_op, _, floored = device_loop(fn, args, k=8, windows=2)
+    if floored:
+        log("    (this slope did not clear the spread of its tries)")
+    return per_op * 1e3
+
+
+def host_eval(evals, domain, x: int, r: int) -> int:
+    """p(x) of a polynomial in evaluation form on `domain` (Python ints):
+    the barycentric formula (x^n - 1)/n sum_i e_i w_i / (x - w_i), or the
+    stored value where x lies on the domain."""
+    if x % r in domain:
+        return evals[domain.index(x % r)]
+    n = len(domain)
+    acc = 0
+    for e, w in zip(evals, domain):
+        acc += e * w * pow(x - w, -1, r)
+    return acc * (pow(x, n, r) - 1) * pow(n, -1, r) % r
+
+
+def counted(*mods) -> dict:
+    out = {}
+    for m in mods:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def eth_phase(dev, card, rng, kmods, plain_path, trace):
+    """The EIP-4844 API at its width (4096 field elements a blob): the
+    insecure setup, blob -> commitment, evaluation, proof, verification,
+    the precompile, the aggregate proof over a 6-blob sidecar and its
+    validation, each against a host oracle; tampered inputs rejected; the
+    same calls on the plain path at width 256; from_json on a file written
+    from the setup. Returns (results, setup launches, path launches)."""
+    import tempfile
+
+    import torch
+
+    from kzg_tpu_torch import eth
+    from kzg_tpu_torch.curve import serialization
+    from kzg_tpu_torch.field import fr
+    from kzg_tpu_torch.ntt import bit_reversal_indices
+    from kzg_tpu_torch.utils import host_ec
+
+    r = fr.SPEC.modulus
+    width = eth.FIELD_ELEMENTS_PER_BLOB
+    for m in kmods:
+        m.reset_launches()
+    t = time.time()
+    es = eth.EthSettings.insecure(ETH_SECRET, width, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.time()
+    tables = es.lagrange_tables
+    torch.cuda.synchronize()
+    table_s = time.time() - t
+    table_bytes = tables.numel() * tables.element_size()
+    table_peak = torch.cuda.max_memory_allocated() - mem0
+    setup_launches = counted(*kmods)
+    check(setup_launches["g1_scalar_mul"] == 1,
+          "the insecure eth setup is not one K3 launch")
+    check(setup_launches["g1_window_table"] > 0,
+          "the Lagrange tables did not launch g1_window_table")
+    gen = host_ec.g1_generator()
+    s = ETH_SECRET % r
+    # [L_i(s)]G of a few points against the host: L_i(s) with w_i the
+    # bit-reversed domain's i-th point
+    sw = pow(s, width, r)
+    for i in (0, 1, width - 1):
+        w = es.domain_ints[i]
+        li = w * (sw - 1) * pow(width * (s - w), -1, r) % r
+        check(es.lagrange_affine_brp[i] == host_ec.g1_mul(gen, li),
+              f"Lagrange point {i} differs from the host")
+    check(es.setup_g1_affine[5] == host_ec.g1_mul(gen, pow(s, 5, r)),
+          "setup_g1[5] differs from the host")
+
+    def blob_of(ints):
+        return b"".join(v.to_bytes(32, "little") for v in ints)
+
+    ints = [random_fr_ints(rng, width, r) for _ in range(SIDECAR_BLOBS)]
+    blobs = [blob_of(v) for v in ints]
+    z = random_fr_ints(rng, 1, r)[0]
+    z32 = z.to_bytes(32, "little")
+
+    def commitment_oracle(ev):
+        return serialization.compress_g1(host_ec.g1_mul(
+            gen, host_eval(ev, es.domain_ints, s, r)))
+
+    def proof_oracle(ev, x):
+        y_ = host_eval(ev, es.domain_ints, x, r)
+        ps = host_eval(ev, es.domain_ints, s, r)
+        return y_, serialization.compress_g1(host_ec.g1_mul(
+            gen, (ps - y_) * pow(s - x, -1, r) % r))
+
+    for m in kmods:
+        m.reset_launches()
+    comm = eth.blob_to_kzg_commitment(es, blobs[0])
+    p0 = eth.blob_to_polynomial(es, blobs[0])
+    y = eth.evaluate_polynomial_in_evaluation_form(es, p0, z)
+    proof = eth.compute_kzg_proof(es, p0, z)
+    y32 = y.to_bytes(32, "little")
+    ok = eth.verify_kzg_proof(es, comm, z32, y32, proof)
+    vh = eth.kzg_to_versioned_hash(comm)
+    pre = eth.point_evaluation_precompile(es, vh + z32 + y32 + comm + proof)
+    comms = [comm] + [eth.blob_to_kzg_commitment(es, b) for b in blobs[1:]]
+    agg = eth.compute_aggregate_kzg_proof(es, blobs)
+    side = eth.BlobsSidecar(b"\x33" * 32, 9, blobs, agg)
+    eth.validate_blobs_sidecar(es, 9, b"\x33" * 32, comms, side)
+    torch.cuda.synchronize()
+    path_launches = counted(*kmods)
+    log(f"eth path launches: {json.dumps(path_launches)}")
+    for name in ETH_KERNELS:
+        check(path_launches[name] > 0,
+              f"{name} was not launched on the eth path")
+    check(ok, "verify_kzg_proof rejected a true proof")
+    check(pre == width.to_bytes(32, "big") + r.to_bytes(32, "big"),
+          "the precompile's output is wrong")
+    # the host oracles
+    check(comms == [commitment_oracle(v) for v in ints],
+          "the commitments differ from the host oracle [p(s)]G")
+    y_o, proof_o = proof_oracle(ints[0], z)
+    check(y == y_o, "y differs from the host barycentric value")
+    check(proof == proof_o, "the proof differs from [(p(s) - y)/(s - z)]G")
+    h = hashlib.sha256(eth.FIAT_SHAMIR_PROTOCOL_DOMAIN
+                       + width.to_bytes(8, "little")
+                       + SIDECAR_BLOBS.to_bytes(8, "little")
+                       + b"".join(blobs) + b"".join(comms)).digest()
+    rr = int.from_bytes(hashlib.sha256(h + b"\x00").digest(), "little") % r
+    chal = int.from_bytes(hashlib.sha256(h + b"\x01").digest(), "little") % r
+    agg_ev = [sum(pow(rr, k, r) * ints[k][i] for k in range(SIDECAR_BLOBS))
+              % r for i in range(width)]
+    check(agg == proof_oracle(agg_ev, chal)[1],
+          "the aggregate proof differs from its host oracle")
+    # tampered inputs
+    y1 = ((y + 1) % r).to_bytes(32, "little")
+    check(not eth.verify_kzg_proof(es, comm, z32, y1, proof),
+          "a tampered y was accepted")
+    check(not eth.verify_kzg_proof(es, comm, z32, y32, comms[1]),
+          "a tampered proof was accepted")
+    bad = eth.BlobsSidecar(b"\x33" * 32, 9, blobs, proof)
+    try:
+        eth.validate_blobs_sidecar(es, 9, b"\x33" * 32, comms, bad)
+        check(False, "a tampered sidecar was accepted")
+    except ValueError:
+        pass
+    tampered = bytearray(blobs[-1])
+    tampered[64] ^= 1
+    check(not eth.verify_aggregate_kzg_proof(
+        es, blobs[:-1] + [bytes(tampered)], comms, agg),
+        "a tampered blob passed the aggregate check")
+    log(f"eth at width {width}: setup {setup_s:.2f} s (one K3 launch), "
+        f"Lagrange tables {table_s:.3f} s, {table_bytes} bytes, peak "
+        f"{table_peak} bytes; the commitments, y, the proof and the "
+        f"{SIDECAR_BLOBS}-blob aggregate proof equal their host oracles; "
+        f"verify, precompile and the sidecar pass; tampered y, proof, "
+        f"sidecar and blob are rejected")
+
+    # the same calls on the plain path at width 256
+    small = [blob_of(v[:ETH_PLAIN_WIDTH]) for v in ints]
+
+    def small_run():
+        es_ = eth.EthSettings.insecure(ETH_SECRET, ETH_PLAIN_WIDTH,
+                                       device=dev)
+        p_ = eth.blob_to_polynomial(es_, small[0])
+        cs = [eth.blob_to_kzg_commitment(es_, b) for b in small]
+        y_ = eth.evaluate_polynomial_in_evaluation_form(es_, p_, z)
+        pf = eth.compute_kzg_proof(es_, p_, z)
+        ag = eth.compute_aggregate_kzg_proof(es_, small)
+        return (es_.lagrange_affine_brp, cs, y_, pf, ag,
+                eth.compute_aggregated_poly_and_commitment(
+                    es_, eth.blobs_to_polynomials(es_, small), cs)[1],
+                eth.verify_aggregate_kzg_proof(es_, small, cs, ag))
+
+    got = small_run()
+    with plain_path():
+        want = small_run()
+    check(got == want, f"the eth calls at width {ETH_PLAIN_WIDTH} differ "
+          "from the plain path")
+    check(got[-1], f"the aggregate check failed at width {ETH_PLAIN_WIDTH}")
+
+    # from_json on a file of the reference's schema written from the setup
+    natural = [None] * width
+    for i, j in enumerate(bit_reversal_indices(width)):
+        natural[int(j)] = es.lagrange_affine_brp[i]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trusted_setup.json")
+        with open(path, "w") as f:
+            json.dump({"setup_G1": [serialization.g1_to_hex(p)
+                                    for p in es.setup_g1_affine],
+                       "setup_G2": [serialization.g2_to_hex(q) for q in
+                                    (host_ec.g2_generator(), es.setup_g2_1)],
+                       "setup_G1_lagrange": [serialization.g1_to_hex(p)
+                                             for p in natural]}, f)
+        t = time.time()
+        loaded = eth.EthSettings.from_json(path, device=dev)
+        from_json_s = time.time() - t
+    check(loaded.lagrange_affine_brp == es.lagrange_affine_brp
+          and loaded.setup_g1_affine == es.setup_g1_affine
+          and loaded.setup_g2_1 == es.setup_g2_1,
+          "from_json gives other points than the setup it was written from")
+    log(f"eth: the calls at width {ETH_PLAIN_WIDTH} equal the plain path's; "
+        f"from_json of "
+        f"{2 * width} G1 points {from_json_s:.2f} s, the same points")
+
+    times = {
+        "commitment_ms": slope_ms(lambda: eth.blob_to_kzg_commitment(
+            es, blobs[0])),
+        "evaluation_ms": slope_ms(
+            lambda: eth.evaluate_polynomial_in_evaluation_form(es, p0, z)),
+        "proof_ms": slope_ms(lambda: eth.compute_kzg_proof(es, p0, z)),
+        "verification_ms": slope_ms(lambda: eth.verify_kzg_proof(
+            es, comm, z32, y32, proof)),
+        "aggregate_proof_ms": slope_ms(
+            lambda: eth.compute_aggregate_kzg_proof(es, blobs)),
+        "validation_ms": slope_ms(lambda: eth.validate_blobs_sidecar(
+            es, 9, b"\x33" * 32, comms, side)),
+    }
+    log(f"[{card}] eth at width {width}, ms a call (host clock, the slope "
+        "of 1 to 9 calls): " + ", ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in times.items())
+        + f" ({SIDECAR_BLOBS} blobs aggregate and validation)")
+    prof = trace(f"eth compute_aggregate_kzg_proof ({SIDECAR_BLOBS} blobs)",
+                 lambda: eth.compute_aggregate_kzg_proof(es, blobs),
+                 times["aggregate_proof_ms"],
+                 os.path.join(OUT_DIR, "eth_aggregate_trace"))
+    peak = torch.cuda.max_memory_allocated()
+    return ({"setup_s": setup_s, "table_s": table_s,
+             "table_bytes": table_bytes, "table_peak_bytes": table_peak,
+             "peak_bytes": peak, "from_json_s": from_json_s, **times,
+             "aggregate_proof_profile": prof},
+            setup_launches, path_launches)
+
+
+def host_fft_g1(aff, roots, max_width: int, inv_n, host_ec):
+    """The reference's radix-2 butterflies on host ints: the input
+    bit-reversed, then per stage (a + [w]b, a - [w]b), times inv_n if
+    given. Off the r-torsion [a]P depends on a mod ord(P), so this, not a
+    DFT over Fr, is what the generic route computes there."""
+    n = len(aff)
+    bits = n.bit_length() - 1
+    x = [aff[bitrev(i, bits)] for i in range(n)]
+    m = 1
+    while m < n:
+        m *= 2
+        half, stride = m // 2, max_width // m
+        for g in range(0, n, m):
+            for j in range(half):
+                a = x[g + j]
+                t = host_ec.g1_mul(x[g + j + half], roots[j * stride])
+                x[g + j], x[g + j + half] = (host_ec.g1_add(a, t),
+                                             host_ec.g1_sub(a, t))
+    if inv_n is not None:
+        x = [host_ec.g1_mul(p, inv_n) for p in x]
+    return x
+
+
+def fft_g1_generic_phase(dev, card, rng, kmods, fs13):
+    """fft_g1(..., in_subgroup=False): 16 points off the r-torsion both
+    ways against the host's radix-2 butterflies; at 4096 subgroup points
+    inverse(forward) is the identity; at 128 and 4096 subgroup points the
+    generic route equals the GLV route. Returns (results, launches of one
+    forward transform at 4096)."""
+    import torch
+
+    from kzg_tpu_torch.curve import g1
+    from kzg_tpu_torch.curve.fft_g1 import fft_g1
+    from kzg_tpu_torch.field import fp, fr
+    from kzg_tpu_torch.utils import host_ec
+
+    r, p = fr.SPEC.modulus, fp.SPEC.modulus
+    aff = []
+    while len(aff) < GENERIC_OFF_POINTS:
+        x = random_fr_ints(rng, 1, p)[0]
+        y2 = (pow(x, 3, p) + 4) % p
+        y = pow(y2, (p + 1) // 4, p)
+        if y * y % p == y2 and host_ec.g1_mul((x, y), r) is not None:
+            aff.append((x, y))
+    pts = g1.from_affine_ints(aff, dev)
+    roots = fs13.roots_of_unity_int()
+    for inverse in (False, True):
+        got = g1.to_affine_ints_host(fft_g1(fs13, pts, inverse,
+                                            in_subgroup=False))
+        want = host_fft_g1(aff, roots[::-1] if inverse else roots,
+                           fs13.max_width,
+                           pow(len(aff), -1, r) if inverse else None,
+                           host_ec)
+        check(got == want, f"the generic G1 FFT (inverse={inverse}) of "
+              f"{len(aff)} points off the subgroup differs from the host "
+              "butterflies")
+
+    def sub_pts(n):
+        return g1.mul(g1.generator((n,), dev),
+                      fr.from_int(random_fr_ints(rng, n, r), dev))
+
+    for n in GENERIC_SIZES:
+        x = sub_pts(n)
+        gen_f = fft_g1(fs13, x, in_subgroup=False)
+        check(g1.to_affine_ints_host(gen_f)
+              == g1.to_affine_ints_host(fft_g1(fs13, x)),
+              f"the generic G1 FFT differs from the GLV route at {n} points")
+    for m in kmods:
+        m.reset_launches()
+    fwd = fft_g1(fs13, x, in_subgroup=False)
+    torch.cuda.synchronize()
+    launches = counted(*kmods)
+    back = fft_g1(fs13, fwd, inverse=True, in_subgroup=False)
+    check(g1.to_affine_ints_host(back) == g1.to_affine_ints_host(x),
+          f"inverse(forward) of the generic G1 FFT at {n} points is not "
+          "the identity")
+    stages = n.bit_length() - 1
+    check(launches["g1_scalar_mul"] == stages
+          and launches["g1_add"] == stages,
+          f"the generic {n}-point transform launched K3 "
+          f"{launches['g1_scalar_mul']} and g1_add {launches['g1_add']} "
+          f"times, not {stages} each")
+    for name in ("g1_glv_butterfly", "g1_fft_stage", "g1_window_table"):
+        check(launches[name] == 0, f"the generic route launched {name}")
+    ms_generic = slope_ms(lambda q: fft_g1(fs13, q, in_subgroup=False), x)
+    ms_glv = slope_ms(lambda q: fft_g1(fs13, q), x)
+    n_launch = sum(launches.values())
+    log(f"generic G1 FFT: {len(aff)} off-subgroup points both ways equal "
+        f"the host butterflies; at {GENERIC_SIZES} subgroup points equal to "
+        f"the GLV route; inverse(forward) at {n} is the identity")
+    log(f"[{card}] G1 FFT {n} points: generic route {ms_generic:.3f} ms, "
+        f"{n_launch} launches a transform ({launches['g1_scalar_mul']} K3, "
+        f"{launches['g1_add']} g1_add, {launches['fr_signed_windows']} "
+        f"fr_signed_windows); GLV route {ms_glv:.3f} ms")
+    return ({"points": n, "ms": ms_generic, "glv_ms": ms_glv,
+             "launches_a_transform": n_launch}, launches)
+
+
+def persistence_phase(dev, card, kmods, ks, fkm, coeffs, proofs):
+    """Save the PeerDAS shape's KZG settings and FK20MultiSettings(n2=8192,
+    l=64), load them, and hold the loaded settings' proofs (128) against
+    the ones before. Returns (results, launches of the loaded settings' first
+    call, which rebuilds the fixed-base tables)."""
+    import tempfile
+
+    import torch
+
+    from kzg_tpu_torch.curve import g1
+    from kzg_tpu_torch.kzg import persist
+
+    with tempfile.TemporaryDirectory() as d:
+        pk_, pf_ = os.path.join(d, "kzg.npz"), os.path.join(d, "fk20.npz")
+        t = time.time()
+        persist.save_kzg_settings(pk_, ks)
+        persist.save_fk20_multi(pf_, fkm)
+        save_s = time.time() - t
+        nbytes = os.path.getsize(pk_) + os.path.getsize(pf_)
+        t = time.time()
+        ks_l = persist.load_kzg_settings(pk_, device=dev)
+        fkm_l = persist.load_fk20_multi(pf_, ks_l)
+        torch.cuda.synchronize()
+        load_s = time.time() - t
+    check(ks_l.secret_g2_affine == ks.secret_g2_affine,
+          "the loaded [s^i]_2 differ")
+    for m in kmods:
+        m.reset_launches()
+    t = time.time()
+    got = fkm_l.da_using_fk20_multi(coeffs)
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    launches = counted(*kmods)
+    check(g1.to_affine_ints_host(got) == g1.to_affine_ints_host(proofs),
+          "the loaded settings' 128 proofs differ")
+    log(f"[{card}] persistence: KZG settings ({ks.secret_g1.x.shape[0]} "
+        f"points) and FK20MultiSettings(n2={fkm.n2}, l={fkm.chunk_len}): "
+        f"{nbytes} bytes, saved in {save_s:.3f} s, loaded in {load_s:.3f} s; "
+        f"the loaded settings' first call (tables rebuilt) {first_s:.3f} s, "
+        f"the same {proofs.x.shape[0]} proofs")
+    return ({"file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+             "first_call_s": first_s}, launches)
+
+
+def examples_phase(card):
+    """The port's two examples at their defaults, each in its own process;
+    each must end in its PASS line."""
+    out = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, last in (("eth_blob_demo_torch", "ETH BLOB DEMO PASS"),
+                       ("full_das_pipeline_torch",
+                        "FULL DAS PIPELINE PASS")):
+        t = time.time()
+        run = subprocess.run([sys.executable,
+                              os.path.join(root, "examples", name + ".py")],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=root)
+        out[name + "_s"] = time.time() - t
+        lines = run.stdout.strip().splitlines()
+        check(run.returncode == 0 and lines and lines[-1] == last,
+              f"examples/{name}.py failed: {run.stdout[-800:]}"
+              f"{run.stderr[-1500:]}")
+        log(f"[{card}] examples/{name}.py at its defaults: {lines[-1]} "
+            f"({out[name + '_s']:.1f} s with its process start)")
+        for line in lines[:-1]:
+            log(f"    {line}")
+    return out
 
 
 def main() -> int:
@@ -1632,9 +2126,9 @@ def main() -> int:
     log(f"[{card}] lin_comb_g1 at {n} points: {lin_comb_ms:.3f} ms; window "
         f"sums {wsums_ms:.3f} ms, g1_horner {horner_ms:.3f} ms")
 
-    def trace(what, fn, call_ms):
+    def trace(what, fn, call_ms, chrome_dir=None):
         """Device activity of one traced call of fn."""
-        spans = device_events(fn)
+        spans = device_events(fn, chrome_dir)
         busy_ms = busy_us(spans) / 1e3
         by_name = {}
         for name, s, e in spans:
@@ -1705,7 +2199,7 @@ def main() -> int:
         dev_ms, caught = kernel_ms(fn, match, reps)
         call2_ms = timed(fn, reps)
         # a call of `per_call` launches: its device time is theirs
-        ms = call2_ms if dev_ms is None else dev_ms * per_call
+        ms = dev_ms * per_call
         b, by = bound_ms(nbytes, products)
         by_path = {p: c[name] for p, c in path_launches.items()}
         row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
@@ -1778,8 +2272,6 @@ def main() -> int:
     chain1 = 3 + 7 * 12 + 63 * 4 * 8 + 12 * int((d1l != 0).sum()) + 3
     lane_fn = (lambda: gk.g1_scalar_mul(one, d1l))
     lane_ms, _ = kernel_ms(lane_fn, "scalar_mul_kernel", 5)
-    if lane_ms is None:     # the trace caught no launch: events instead
-        lane_ms = timed(lane_fn, 5)
     lat_ms = lane_ms / chain1
     log(f"[{card}] Fp product dependent latency: one K3 lane "
         f"{lane_ms:.4f} ms / {chain1} products = {lat_ms * 1e6:.1f} ns")
@@ -2080,8 +2572,6 @@ def main() -> int:
     a1 = inv_in[5:6].clone()
     pow1_fn = (lambda: fk.fr_pow(FR, a1, e_inv))
     pow1_ms, _ = kernel_ms(pow1_fn, "pow_kernel", 5)
-    if pow1_ms is None:     # the trace caught no launch: events instead
-        pow1_ms = timed(pow1_fn, 5)
     fr_lat_ms = pow1_ms / ladder
     log(f"[{card}] Fr product dependent latency: a one-lane ladder "
         f"{pow1_ms:.4f} ms / {ladder} products = {fr_lat_ms * 1e6:.1f} ns")
@@ -2229,7 +2719,7 @@ def main() -> int:
     b, by = bound_ms(9 * das_bytes, 9 * das_products * (2 * 8 * 8 + 8))
     key = "9 x 4096"
     das_variants = {key: {
-        "device_ms": None if launch_ms is None else launch_ms * passes,
+        "device_ms": launch_ms * passes,
         "traced_launches": caught, "passes": passes,
         "call_ms": timed(fn, 10), "bound_ms": b, "bound_by": by}}
     log(f"[{card}] fr_das_block {key}: {passes} passes, "
@@ -2370,6 +2860,28 @@ def main() -> int:
            + rounds(18, warp) + 316 * rounds(18, warp)
            + 52 * rounds(54, warp), shape=f"{n_cells} lanes, a warp a lane")
 
+    # ---- 10-13. the eth API, the generic G1 FFT, persistence, the
+    # examples: after the kernel rows and the verification trace, which
+    # so run as early in the process as before these phases existed
+    # (torch.profiler loses more of a trace's device records the older
+    # the process is); their launches join the kernel rows' counts ----
+    kmods = (fk, gk, pk)
+    eth_res, eth_setup_launches, eth_launches = eth_phase(
+        dev, card, rng, kmods, plain_path, trace)
+    fft_generic_res, fft_generic_launches = fft_g1_generic_phase(
+        dev, card, rng, kmods, fs13)
+    persist_res, persist_launches = persistence_phase(
+        dev, card, kmods, ks, fkm, coeffs, proofs)
+    examples_res = examples_phase(card)
+    late = {"eth_setup": eth_setup_launches, "eth": eth_launches,
+            "fft_g1_generic": fft_generic_launches,
+            "persistence": persist_launches}
+    path_launches.update(late)
+    for row in kernels:
+        row["launches_by_path"].update(
+            {p: c[row["name"]] for p, c in late.items()})
+        row["launches"] = sum(row["launches_by_path"].values())
+
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
               "proofs_per_s": n2 // l / fk20_ms * 1e3,
@@ -2404,7 +2916,9 @@ def main() -> int:
               "verify_ms": verify_ms, "verify_ms_a_cell": verify_ms / n_cells,
               "verify_first_s": verify_first_s,
               "decompress_129_s": decompress_s,
-              "verify_profile": verify_profile}
+              "verify_profile": verify_profile, "eth": eth_res,
+              "fft_g1_generic": fft_generic_res,
+              "persistence": persist_res, "examples": examples_res}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ The JAX package stores uint32 (..., 2N) arrays of 16-bit limbs in
 Montgomery form; the port stores int32 (..., N) 32-bit words with the same
 R. Converting is a repack of the same integer, in both directions. Inputs
 here are numpy arrays (np.asarray of the JAX arrays), so this module needs
-neither JAX nor the JAX package.
+neither JAX nor the JAX package. The `load_*_from_reference` functions
+read the files that kzg_tpu.kzg.persist's save_* write.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from .curve.weierstrass import JacobianPoint
 from .fk20.multi import FK20MultiSettings
 from .fk20.single import FK20SingleSettings
+from .kzg.persist import g2_from_bytes
 from .kzg.settings import KZGSettings
 from .ntt.domain import FFTSettings
 
@@ -66,3 +68,36 @@ def fk20_single_settings_from_reference(fs: FFTSettings, secret_g1, n2: int,
     return FK20SingleSettings.from_reference_arrays(
         kzg_settings_from_reference(fs, secret_g1), n2,
         point_from_ref(*x_ext_fft, device=fs.device))
+
+
+# ---- files that kzg_tpu.kzg.persist's save_* wrote (16-bit limbs) ----
+def _ref_point(z, prefix: str, device) -> JacobianPoint:
+    return point_from_ref(*(z[f"{prefix}_{c}"] for c in "xyz"),
+                          device=device)
+
+
+def load_kzg_settings_from_reference(path: str, device="cuda") -> KZGSettings:
+    """The port's KZGSettings from kzg_tpu's save_kzg_settings file."""
+    with np.load(path) as z:
+        fs = FFTSettings(int(z["max_scale"]), device)
+        return KZGSettings(fs, _ref_point(z, "s1", fs.device),
+                           g2_from_bytes(z["g2_affine"]))
+
+
+def load_fk20_single_from_reference(path: str,
+                                    ks: KZGSettings) -> FK20SingleSettings:
+    """The port's FK20SingleSettings on ks from kzg_tpu's
+    save_fk20_single file."""
+    with np.load(path) as z:
+        return FK20SingleSettings.from_reference_arrays(
+            ks, int(z["n2"]), _ref_point(z, "xe", ks.fs.device))
+
+
+def load_fk20_multi_from_reference(path: str,
+                                   ks: KZGSettings) -> FK20MultiSettings:
+    """The port's FK20MultiSettings on ks from kzg_tpu's save_fk20_multi
+    file."""
+    with np.load(path) as z:
+        return FK20MultiSettings.from_reference_arrays(
+            ks, int(z["n2"]), int(z["chunk_len"]),
+            _ref_point(z, "xf", ks.fs.device))

@@ -23,6 +23,9 @@ commitment and proof point does.
 
 Unlike the JAX package, leading batch axes are allowed: (..., n) points
 transform together, one launch per stage for the whole batch.
+
+`fft_g1(..., in_subgroup=False)` takes the reference's radix-2 route
+instead, on K3 and `g1_add`, which holds for any point of the curve.
 """
 
 from __future__ import annotations
@@ -200,11 +203,55 @@ def _fft_g1_core(points: JacobianPoint, max_scale: int, inverse: bool,
         lambda c: c.reshape(batch_shape + (n, fp.N_WORDS)), pts)
 
 
-def fft_g1(fs: FFTSettings, points: JacobianPoint,
-           inverse: bool = False) -> JacobianPoint:
+def _fft_g1_generic(fs: FFTSettings, points: JacobianPoint,
+                    inverse: bool) -> JacobianPoint:
+    """The radix-2 route for any curve point (kzg_tpu/curve/fft_g1.py:
+    76-101): the input in bit-reversed order, then per stage t = [w]b on
+    K3 (`g1.mul`: one fr_signed_windows and one g1_scalar_mul launch) and
+    (lo, hi) = (a + t, a - t) in one g1_add launch; an inverse ends with
+    a K3 product by 1/n."""
+    n = points.x.shape[-2]
+    batch_shape = points.x.shape[:-2]
+    dev = points.x.device
+    roots = (fs.reverse_roots_of_unity if inverse
+             else fs.expanded_roots_of_unity)
+    pts = map_points(lambda c: brp_permute(c.reshape(-1, n, fp.N_WORDS)),
+                     points)
+    B = pts.x.shape[0]
+    m = 1
+    while m < n:
+        m *= 2
+        half = m >> 1
+        stride = fs.max_width // m
+        resh = map_points(lambda c: c.reshape(B, n // m, m, fp.N_WORDS), pts)
+        a = map_points(lambda c: c[:, :, :half], resh)
+        t = g1.mul(map_points(lambda c: c[:, :, half:], resh),
+                   roots[:half * stride:stride])
+        # (a, a) + (t, -t): lo and hi in one launch, then side by side
+        both = g1.ops_kernel.add(
+            map_points(lambda c: torch.cat((c, c)), a),
+            map_points(lambda u, v: torch.cat((u, v)), t,
+                       g1.ops_kernel.neg(t)))
+        pts = map_points(lambda c: torch.cat((c[:B], c[B:]), dim=2)
+                         .reshape(B, n, fp.N_WORDS), both)
+    if inverse:
+        pts = g1.mul(pts, fr.from_int(pow(n, -1, fr.SPEC.modulus), dev))
+    return map_points(
+        lambda c: c.reshape(batch_shape + (n, fp.N_WORDS)), pts)
+
+
+def fft_g1(fs: FFTSettings, points: JacobianPoint, inverse: bool = False,
+           in_subgroup: bool = True) -> JacobianPoint:
     """(I)FFT of (..., n) G1 points along the point axis; n a power of
-    two <= fs.max_width (reference: fft_g1.go:62-68), on
-    `default_plan(n)`."""
+    two <= fs.max_width (reference: fft_g1.go:62-68).
+
+    in_subgroup=True (the default) runs `default_plan(n)` on the GLV
+    kernels, whose scalars assume phi(P) == lambda P: true only in the
+    r-torsion subgroup, where every point of this package lies (CRS,
+    commitments, proofs, points decompressed with the subgroup check).
+    For points of unknown order (decompressed with subgroup_check=False)
+    pass in_subgroup=False: the radix-2 route on K3 and g1_add, correct
+    for any curve point."""
     n = points.x.shape[-2]
     if n > fs.max_width:
         raise ValueError("got more values than roots of unity")
@@ -212,6 +259,8 @@ def fft_g1(fs: FFTSettings, points: JacobianPoint,
         raise ValueError("got a non-power-of-two number of values")
     if n == 1:
         return points
+    if not in_subgroup:
+        return _fft_g1_generic(fs, points, inverse)
     return _fft_g1_core(points, fs.max_scale, inverse, default_plan(n))
 
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..field import fp, fr
-from ..field.constants import G1_GENERATOR_X, G1_GENERATOR_Y
+from ..field.constants import FP_MODULUS, G1_GENERATOR_X, G1_GENERATOR_Y
 from .kernels import g1_add, g1_double, g1_scalar_mul
 from .weierstrass import CurveOps, JacobianPoint, map_points
 
@@ -99,6 +99,23 @@ def from_affine_ints(coords, device="cuda") -> JacobianPoint:
             xs.append(c[0]), ys.append(c[1]), zs.append(1)
     return JacobianPoint(fp.from_int(xs, device), fp.from_int(ys, device),
                          fp.from_int(zs, device))
+
+
+def to_affine_ints_host(p: JacobianPoint) -> list:
+    """(...,) batch -> flat list of (x, y) int pairs, None for infinity,
+    with the inverses on the host: one copy from the device and no
+    launch, the cheaper way for a few points."""
+    xs, ys, zs = (fp.to_int(c).reshape(-1) for c in p)
+    out = []
+    for x, y, z in zip(xs, ys, zs):
+        if z == 0:
+            out.append(None)
+            continue
+        zi = pow(int(z), -1, FP_MODULUS)
+        zi2 = zi * zi % FP_MODULUS
+        out.append((int(x) * zi2 % FP_MODULUS,
+                    int(y) * zi2 * zi % FP_MODULUS))
+    return out
 
 
 def to_affine_ints(p: JacobianPoint) -> list:

@@ -58,6 +58,11 @@ def reset_launches() -> None:
 
 
 # ---- plain version: RCB formulas on the redundant int64 engine ----
+# the most lanes a product of the plain point formulas has where their
+# independent products share one engine call
+PLAIN_BATCH_LANES = 32
+
+
 class _Plain:
     def __init__(self, device):
         self.c = limbs.consts(fp.SPEC, device)
@@ -71,42 +76,48 @@ class _Plain:
     def M(self, a, b):
         return limbs.mul_lazy(self.c, a, b)
 
+    def Ms(self, *pairs):
+        """Independent products, in one engine call where they have few
+        lanes (there the per-call cost dominates; on many lanes one call
+        a product keeps each call's operands in cache). The engine works
+        lane by lane, so each equals its own M(a, b) limb for limb."""
+        shape = torch.broadcast_shapes(*(t.shape for ab in pairs
+                                         for t in ab))
+        if math.prod(shape[:-1]) > PLAIN_BATCH_LANES:
+            return tuple(self.M(a, b) for a, b in pairs)
+        a = torch.stack([x.expand(shape) for x, _ in pairs])
+        b = torch.stack([y.expand(shape) for _, y in pairs])
+        return self.M(a, b).unbind(0)
+
     def proj_add(self, p, q):
-        """RCB15 Algorithm 7 (a = 0)."""
-        M = self.M
+        """RCB15 Algorithm 7 (a = 0), its products in two tiers."""
         x1, y1, z1 = p
         x2, y2, z2 = q
-        t0 = M(x1, x2)
-        t1 = M(y1, y2)
-        t2 = M(z1, z2)
-        t3 = M(x1 + y1, x2 + y2) - (t0 + t1)
-        t4 = M(y1 + z1, y2 + z2) - (t1 + t2)
-        y3 = M(x1 + z1, x2 + z2) - (t0 + t2)
+        t0, t1, t2, t3, t4, y3 = self.Ms(
+            (x1, x2), (y1, y2), (z1, z2), (x1 + y1, x2 + y2),
+            (y1 + z1, y2 + z2), (x1 + z1, x2 + z2))
+        t3 = t3 - (t0 + t1)
+        t4 = t4 - (t1 + t2)
+        y3 = y3 - (t0 + t2)
         t0 = 3 * t0
         t2 = 12 * t2
         z3 = t1 + t2
         t1 = t1 - t2
         y3 = 12 * y3
-        x3 = M(t3, t1) - M(t4, y3)
-        y3 = M(t1, z3) + M(y3, t0)
-        z3 = M(z3, t4) + M(t0, t3)
-        return x3, y3, z3
+        a, b, c, d, e, f = self.Ms((t3, t1), (t4, y3), (t1, z3), (y3, t0),
+                                   (z3, t4), (t0, t3))
+        return a - b, c + d, e + f
 
     def proj_double(self, p):
-        """RCB15 Algorithm 9 (a = 0)."""
-        M = self.M
+        """RCB15 Algorithm 9 (a = 0), its products in two tiers."""
         x, y, z = p
-        t0 = M(y, y)
+        t0, t1, zz, xy = self.Ms((y, y), (y, z), (z, z), (x, y))
         z3 = 8 * t0
-        t1 = M(y, z)
-        t2 = 12 * M(z, z)
-        x3 = M(t2, z3)
+        t2 = 12 * zz
         y3 = t0 + t2
-        z3 = M(t1, z3)
         t0 = t0 - 3 * t2
-        y3 = x3 + M(t0, y3)
-        x3 = 2 * M(t0, M(x, y))
-        return x3, y3, z3
+        x3, z3, ty, tx = self.Ms((t2, z3), (t1, z3), (t0, y3), (t0, xy))
+        return 2 * tx, x3 + ty, z3
 
     def jac_to_proj(self, p: JacobianPoint):
         """Jacobian words -> projective (XZ : Y : Z^3); Z = 0 -> (0:1:0)."""
@@ -296,9 +307,11 @@ def _tree_plain(pl: _Plain, acc, first, n: int):
     return tuple(c[..., 0, :] for c in acc)
 
 
-def _sum_pass_plain(p: JacobianPoint) -> JacobianPoint:
+def _sum_pass_plain(p: JacobianPoint, warp_rows: bool = True) -> JacobianPoint:
     """One g1_sum launch: (rows, n) points -> (rows, blocks) partials, a
-    block's SUM_RUN x SUM_THREADS items each, in the kernel's order."""
+    block's SUM_RUN x SUM_THREADS items each, in the kernel's order.
+    warp_rows=False computes every thread of a short row too (the tests
+    hold the short-row shortcut against it)."""
     pl = _plain(p.x.device)
     rows, n = p.x.shape[:2]
     span = SUM_RUN * SUM_THREADS
@@ -310,11 +323,23 @@ def _sum_pass_plain(p: JacobianPoint) -> JacobianPoint:
     x = tuple(c.reshape(rows, nb, SUM_THREADS, SUM_RUN, -1) for c in x)
     first = torch.arange(nb * span, device=p.x.device).reshape(
         nb, SUM_THREADS, SUM_RUN)
+    # a row of at most one warp's items: the threads past the first
+    # power of two that holds them add nothing that reaches lane 0 (each
+    # tree level adds lane j + s only where its first item lies below n),
+    # so only those threads are computed, and the tree across warps,
+    # whose other warps hold no item, is the identity
+    warp_only = warp_rows and nb == 1 and n <= 32 * SUM_RUN
+    if warp_only:
+        lanes = 1 << (-(-n // SUM_RUN) - 1).bit_length()
+        x = tuple(c[:, :, :lanes] for c in x)
+        first = first[:, :lanes]
     acc = tuple(c[..., 0, :] for c in x)
     for k in range(1, SUM_RUN):
         added = pl.proj_add(acc, tuple(c[..., k, :] for c in x))
         valid = (first[..., k] < n).unsqueeze(-1)
         acc = tuple(torch.where(valid, b, a) for a, b in zip(acc, added))
+    if warp_only:
+        return pl.to_jac(_tree_plain(pl, acc, first[..., 0], n))
     first = first[..., 0].reshape(nb, SUM_THREADS // 32, 32)
     acc = _tree_plain(pl, tuple(c.reshape(rows, nb, SUM_THREADS // 32, 32, -1)
                                 for c in acc), first, n)

@@ -1,0 +1,2 @@
+from . import constants, limbs  # noqa: F401
+from . import fr, fp  # noqa: F401

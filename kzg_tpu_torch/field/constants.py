@@ -65,3 +65,8 @@ def fr_scale2_root_of_unity(scale: int) -> int:
     if not 0 <= scale <= FR_TWO_ADICITY:
         raise ValueError(f"no 2^{scale} root of unity in Fr")
     return pow(FR_PRIMITIVE_ROOT, (FR_MODULUS - 1) >> scale, FR_MODULUS)
+
+
+def is_power_of_two(v: int) -> bool:
+    """reference: bls/globals.go:72 (true for 0, as there)."""
+    return v & (v - 1) == 0

@@ -96,3 +96,19 @@ def from_int(values, device="cuda") -> torch.Tensor:
 
 def to_int(t) -> np.ndarray:
     return SPEC.decode(t)
+
+
+def from_int_batch(ints, device="cuda") -> torch.Tensor:
+    """N Python ints -> Montgomery words (N, 12): the canonical values'
+    words times R^2 in one K1 launch (kzg_tpu/field/fp.py:83-95)."""
+    raw = SPEC.words([int(v) % SPEC.modulus for v in ints], device)
+    return mul(raw, SPEC.words([SPEC.r2], device)[0])
+
+
+def to_int_batch(t) -> list:
+    """Montgomery words (..., 12) -> flat list of canonical Python ints:
+    one K1 product by 1, then the words' bytes."""
+    canon = mul(t.reshape(-1, N_WORDS), SPEC.words([1], t.device)[0])
+    rows = np.ascontiguousarray(canon.cpu().numpy().astype("<i4")).view(
+        np.uint8).reshape(-1, 4 * N_WORDS)
+    return [int.from_bytes(r.tobytes(), "little") for r in rows]

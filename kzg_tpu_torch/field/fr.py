@@ -91,6 +91,16 @@ def scalar_windows_signed(a_mont) -> torch.Tensor:
     return fr_signed_windows(a_mont)
 
 
+def scalar_windows(a_mont) -> torch.Tensor:
+    """Canonical 4-bit windows of Montgomery-form scalars: int32 (..., 64)
+    with window i = (a >> 4i) & 0xF, LSB-first (kzg_tpu/field/fr.py:
+    96-105)."""
+    canon = from_mont(a_mont).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(0, 32, 4, dtype=torch.int64, device=canon.device)
+    wins = (canon.unsqueeze(-1) >> shifts) & 0xF
+    return wins.flatten(-2).to(torch.int32)
+
+
 def scalar_bits(a_mont) -> torch.Tensor:
     """Canonical bits of Montgomery-form scalars: int32 (..., 256) with
     bit i = (a >> i) & 1 (kzg_tpu/field/fr.py:133-143)."""
@@ -161,3 +171,21 @@ def from_int(values, device="cuda") -> torch.Tensor:
 def to_int(t) -> np.ndarray:
     """Montgomery words -> object array of canonical Python ints."""
     return SPEC.decode(t)
+
+
+def from_u64(values, device="cuda") -> torch.Tensor:
+    """bls.AsFr parity: unsigned 64-bit ints -> Montgomery words."""
+    return SPEC.encode(values, device)
+
+
+def random(shape=(), generator: torch.Generator | None = None,
+           device="cuda") -> torch.Tensor:
+    """Uniform field elements, Montgomery words (*shape, 8): ten 32-bit
+    draws of `generator` (a CPU torch.Generator; the default one if None)
+    reduced mod r, a bias below 2^-60."""
+    count = int(np.prod(shape)) if shape else 1
+    draws = torch.randint(0, 1 << 32, (count, 10), generator=generator,
+                          dtype=torch.int64).tolist()
+    vals = [sum(w << (32 * i) for i, w in enumerate(row)) % SPEC.modulus
+            for row in draws]
+    return from_int(np.asarray(vals, dtype=object).reshape(shape), device)

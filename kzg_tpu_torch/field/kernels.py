@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from .. import build
-from ..ntt.bitrev import brp_permute
 from . import limbs
 from .constants import FR_MODULUS
 from .limbs import FieldSpec
@@ -368,8 +367,14 @@ def fr_add_sub(spec: FieldSpec, op: str, a, b=None) -> torch.Tensor:
 
 
 def fr_pow_plain(spec: FieldSpec, a, e: int) -> torch.Tensor:
-    return limbs.pow_static(spec, functools.partial(limbs.mont_mul_plain,
-                                                    spec), a, e)
+    """The ladder on the redundant engine's lazy products (each within
+    the bounds the next one takes), made canonical once at the end."""
+    if e == 0:
+        return limbs.pow_static(spec, None, a, 0)
+    c = limbs.consts(spec, a.device)
+    acc = limbs.pow_static(spec, functools.partial(limbs.mul_lazy, c),
+                           limbs.words_to_limbs(a), e)
+    return limbs.limbs_to_words(limbs.canon(c, acc))
 
 
 def fr_pow(spec: FieldSpec, a, e: int) -> torch.Tensor:
@@ -518,6 +523,8 @@ def fr_fft_block_plain(spec: FieldSpec, x, roots, max_width: int,
     each pass of `fft_plan` the tiles gathered by the kernel's index
     formula and each of its stages as `fr_butterfly_stage_plain` with one
     twiddle offset a tile, then the scale. Returns a new tensor."""
+    from ..ntt.bitrev import brp_permute  # ntt's package imports this one
+
     shape = x.shape
     log_n = shape[1].bit_length() - 1
     y = brp_permute(x, axis=1)

@@ -20,6 +20,12 @@ from ..ntt.domain import FFTSettings
 from ..ntt.fft_fr import fft
 
 
+def take_points(p: JacobianPoint, idx) -> JacobianPoint:
+    """The points at `idx` along the leading batch axis."""
+    idx = torch.as_tensor(idx, device=p.x.device).long()
+    return map_points(lambda c: c[idx], p)
+
+
 def concat_points(*ps: JacobianPoint) -> JacobianPoint:
     return map_points(lambda *cs: torch.cat(cs, dim=-2), *ps)
 

@@ -185,8 +185,14 @@ class KZGSettings:
         n_samples, l = ys.shape[0], ys.shape[1]
         if len(xs) != n_samples:
             raise ValueError("xs/ys length mismatch")
+        xs = [int(v) % FR_MODULUS for v in xs]
+        if 0 in xs:
+            # the reference inverts each offset on the host, where 0 raises
+            # before any device work (kzg_tpu/kzg/settings.py:206);
+            # fr_batch_inv would map it to 0 and the check would go on
+            raise ValueError("a coset offset is 0 mod r: it has no inverse")
         dev = ys.device
-        x = fr.from_int([int(v) % FR_MODULUS for v in xs], dev)
+        x = fr.from_int(xs, dev)
         is1 = self._interp_commit(ys, fr.batch_inv(x))            # (N,)
         c = JacobianPoint(*(t.reshape(1, 12).expand(n_samples, 12)
                             for t in commitment))

@@ -15,6 +15,12 @@ from ..utils import host_ec
 from .settings import KZGSettings
 
 
+def secret_from_string(hex_seed: str) -> int:
+    """A hex secret like the reference tests' "1927409816240961209460912649124"
+    (setup.go tests), reduced mod r (kzg_tpu/kzg/setup.py:33-36)."""
+    return int(hex_seed, 16) % FR_MODULUS
+
+
 def secret_powers(secret: int, n: int) -> list:
     secret %= FR_MODULUS
     out, p = [], 1
@@ -56,3 +62,13 @@ def insecure_kzg_settings_device(secret: int, n: int, fs: FFTSettings,
             s2[i] = host_ec.g2_mul(host_ec.g2_generator(),
                                    pow(secret, i, FR_MODULUS))
     return KZGSettings(fs, g1.mul(g1.generator((n,), fs.device), powers), s2)
+
+
+def bench_kzg_settings(n: int, secret: int = 1927409816240961209460912649124,
+                       device="cuda") -> KZGSettings:
+    """A prover's KZGSettings with an n-point G1 CRS from one K3 launch on
+    a domain of 2^ceil(log2(2n - 1)) and no [s^i]_2: commitments, proofs
+    and FK20 only (kzg_tpu/kzg/setup.py:76-101)."""
+    fs = FFTSettings((2 * n - 1).bit_length(), device)
+    powers = fr.from_int(secret_powers(secret, n), fs.device)
+    return KZGSettings(fs, g1.mul(g1.generator((n,), fs.device), powers))

@@ -2,7 +2,32 @@
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def bit_reversal_indices(n: int) -> np.ndarray:
+    """int32 (n,) p with p[i] = i bit-reversed over log2(n) bits."""
+    if n & (n - 1) != 0 or n == 0:
+        raise ValueError("length must be a power of two")
+    bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint64)
+    out = np.zeros(n, dtype=np.uint64)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
+    return out.astype(np.int32)
+
+
+def reverse_bits_limited(length: int, value: int) -> int:
+    """reference: reverseBitsLimited (reverse_bit_order.go:81-84)."""
+    bits = max(length.bit_length() - 1, 0)
+    out = 0
+    for b in range(bits):
+        out |= ((value >> b) & 1) << (bits - 1 - b)
+    return out
 
 
 def brp_permute(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
@@ -23,3 +48,10 @@ def brp_permute(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
             + tuple(range(la + bits, y.dim())))
     return y.permute(perm).reshape(x.shape)
 
+
+
+def reverse_bit_order(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """A tensor in reverse-bit order along `axis` (-2 for an Fr or Fp
+    batch, whose last axis holds the words; apply per coordinate to a
+    point batch)."""
+    return brp_permute(x, axis=axis)

@@ -61,7 +61,16 @@ class FFTSettings:
             roots.copy()).to(self.device)
         self.reverse_roots_of_unity = torch.from_numpy(
             roots[::-1].copy()).to(self.device)
+        self._inv_len = {}
 
     def roots_of_unity_int(self) -> tuple:
         """The expanded circle as Python ints (host use)."""
         return _expanded_roots_int(self.max_scale)
+
+    def inv_length(self, n: int) -> torch.Tensor:
+        """n^-1 mod r as Montgomery words (8,) on the domain's device,
+        kept per n."""
+        if n not in self._inv_len:
+            self._inv_len[n] = fr.from_int(pow(n, -1, FR_MODULUS),
+                                           self.device)
+        return self._inv_len[n]

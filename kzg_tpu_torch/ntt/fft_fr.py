@@ -45,3 +45,16 @@ def fft(fs: FFTSettings, vals: torch.Tensor, inverse: bool = False):
         return _fft_core(vals, fs.reverse_roots_of_unity,
                          n2.bit_length() - 1, fs.max_width)
     return _fft_core(vals, fs.expanded_roots_of_unity, None, fs.max_width)
+
+
+def take_strided(roots: torch.Tensor, count: int, stride: int):
+    """roots[0 : count * stride : stride], (count, 8)."""
+    return roots[:count * stride:stride]
+
+
+def coset_scale(fs: FFTSettings, n: int, inverse: bool = False):
+    """[g^0, ..., g^(n-1)] for g the domain's 2n-th root of unity (its
+    inverse with `inverse`), the DAS extension's coset offset: (n, 8)."""
+    roots = (fs.reverse_roots_of_unity if inverse
+             else fs.expanded_roots_of_unity)
+    return take_strided(roots, n, fs.max_width // (2 * n))

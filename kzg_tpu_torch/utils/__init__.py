@@ -1,0 +1,1 @@
+from . import debug, host_ec, profiling  # noqa: F401

@@ -333,11 +333,59 @@ def record_verify_batch(put):
         ph.CRS_SIZE, ph.BATCH_COEFFS, ph.BATCH_XS, rows)
 
 
+def record_eth(put):
+    """eth_env (tests/conftest.py) and the calls of ph.eth_cases."""
+    from kzg_tpu import eth
+
+    es = eth.EthSettings.insecure(ph.ETH_SECRET, ph.ETH_WIDTH)
+    blobs = ph.eth_blobs()
+    for name, text in ph.eth_cases(eth, fr.to_int, es, blobs).items():
+        put(f"eth:{name}", np.asarray(text), ph.ETH_SECRET, ph.ETH_WIDTH,
+            *blobs)
+
+
+def record_fft_g1_generic(put):
+    """fft_g1's route for any curve point (in_subgroup=False), on points
+    off the r-torsion."""
+    for n in (8, 16):
+        _, pts = ph.off_subgroup_case(n)
+        p = ph.port_to_ref(pts)
+        for inverse in (False, True):
+            put(f"fft_g1_generic:{n}:{int(inverse)}", tuple(fft_g1(
+                FFTSettings(ph.FFT_G1_GENERIC_SCALE), p, inverse,
+                in_subgroup=False)), *p)
+
+
+def record_persist(put):
+    """The arrays that kzg_tpu's save_* write for kzg_env's settings and
+    its FK20 settings at (16, 2) and 16."""
+    import tempfile
+
+    from kzg_tpu.kzg import persist
+
+    ks = kzg_env()
+    objs = (("kzg", persist.save_kzg_settings, ks),
+            ("fk20_multi", persist.save_fk20_multi,
+             FK20MultiSettings(ks, ph.FK20_N2, 2)),
+            ("fk20_single", persist.save_fk20_single,
+             FK20SingleSettings(ks, ph.FK20_N2)))
+    with tempfile.TemporaryDirectory() as d:
+        for name, save, obj in objs:
+            path = os.path.join(d, name + ".npz")
+            save(path, obj)
+            with np.load(path) as f:
+                for k in f.files:
+                    put(f"persist:{name}:{k}", f[k], ph.TEST_SECRET,
+                        ph.CRS_SIZE, name)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
           "recovery": record_recovery, "proofs": record_proofs,
-          "verify": record_verify, "verify_batch": record_verify_batch}
+          "verify": record_verify, "verify_batch": record_verify_batch,
+          "eth": record_eth, "fft_g1_generic": record_fft_g1_generic,
+          "persist": record_persist}
 
 
 def main(names) -> None:

@@ -448,3 +448,161 @@ def multi_case() -> list:
     ys = [eval_poly(PROOF_COEFFS, MULTI_X * pow(w, i, r) % r, r)
           for i in range(MULTI_N)]
     return [ys, [(v + 1) % r for v in ys]]
+
+
+# ---- the eth group (tests/port/test_torch_eth.py): tests/conftest.py's
+# eth_env, three seeded blobs, and the calls of eth_cases ----
+ETH_SECRET, ETH_WIDTH = 424242424242, 16
+ETH_Z = 987654321
+ETH_SLOT, ETH_ROOT = 5, b"\x11" * 32
+
+
+def eth_blobs() -> list:
+    """Three blobs of ETH_WIDTH canonical field elements, 32 little-endian
+    bytes each."""
+    rng = np.random.default_rng(140)
+    return [b"".join(v.to_bytes(32, "little")
+                     for v in random_ints(rng, ETH_WIDTH, _r()))
+            for _ in range(3)]
+
+
+def blob_tx(eth, hashes, payload_offset: int = 192) -> bytes:
+    """A minimal blob transaction whose versioned hashes sit at
+    `payload_offset` past byte 70 (tests/test_eth.py:116-138), with the
+    constants of the eth module given."""
+    off = eth.BLOB_VERSIONED_HASHES_OFFSET
+    tx = bytearray(70 + payload_offset + 32 * len(hashes))
+    tx[0] = eth.BLOB_TX_TYPE
+    tx[off:off + 4] = payload_offset.to_bytes(4, "little")
+    for i, h in enumerate(hashes):
+        tx[70 + payload_offset + 32 * i:70 + payload_offset + 32 * (i + 1)] \
+            = h
+    return bytes(tx)
+
+
+def outcome(fn, *args) -> str:
+    """A call's result as text: "ok <value>" (bytes in hex) or
+    "raise <type>: <message>"."""
+    try:
+        v = fn(*args)
+    except Exception as e:  # noqa: BLE001  (the outcome is the record)
+        return f"raise {type(e).__name__}: {e}"
+    if isinstance(v, (bytes, bytearray)):
+        v = bytes(v).hex()
+    return f"ok {v}"
+
+
+def eth_cases(eth, fr_to_int, es, blobs) -> dict:
+    """The eth group's calls on `es` and `blobs`, the same for kzg_tpu.eth
+    and kzg_tpu_torch.eth: name -> outcome text. fr_to_int reads a
+    polynomial of the package as canonical ints."""
+    r = _r()
+    out = {}
+
+    def run(name, fn, *args):
+        out[name] = outcome(fn, *args)
+
+    out["lagrange_brp"] = str(es.lagrange_affine_brp)
+    out["setup_g1"] = str(es.setup_g1_affine)
+    out["setup_g2_1"] = str(es.setup_g2_1)
+    out["domain"] = str(es.domain_ints)
+    comms = [eth.blob_to_kzg_commitment(es, b) for b in blobs]
+    out["commitments"] = " ".join(c.hex() for c in comms)
+    p0 = eth.blob_to_polynomial(es, blobs[0])
+    out["poly0"] = str([int(v) for v in fr_to_int(p0)])
+    z = ETH_Z
+    y = eth.evaluate_polynomial_in_evaluation_form(es, p0, z)
+    out["y"] = str(y)
+    on = es.domain_ints[3]
+    run("y_on_domain", eth.evaluate_polynomial_in_evaluation_form, es, p0, on)
+    proof = eth.compute_kzg_proof(es, p0, z)
+    out["proof"] = proof.hex()
+    run("proof_on_domain", eth.compute_kzg_proof, es, p0, on)
+    z32, y32 = z.to_bytes(32, "little"), y.to_bytes(32, "little")
+    y1 = ((y + 1) % r).to_bytes(32, "little")
+    run("verify", eth.verify_kzg_proof, es, comms[0], z32, y32, proof)
+    run("verify_wrong_y", eth.verify_kzg_proof, es, comms[0], z32, y1, proof)
+    run("verify_wrong_proof", eth.verify_kzg_proof, es, comms[0], z32, y32,
+        comms[1])
+    run("verify_z_ge_r", eth.verify_kzg_proof, es, comms[0],
+        r.to_bytes(32, "little"), y32, proof)
+    run("verify_bad_point", eth.verify_kzg_proof, es, comms[0], z32, y32,
+        b"\x00" * 48)
+    polys = eth.blobs_to_polynomials(es, blobs)
+    run("challenges", eth.compute_challenges, es, polys, comms)
+    run("aggregated", lambda: eth.compute_aggregated_poly_and_commitment(
+        es, polys, comms)[1:])
+    agg = eth.compute_aggregate_kzg_proof(es, blobs)
+    out["aggregate_proof"] = agg.hex()
+    run("verify_aggregate", eth.verify_aggregate_kzg_proof, es, blobs,
+        comms, agg)
+    bad = bytearray(blobs[0])
+    bad[0] ^= 1
+    run("verify_aggregate_tampered_blob", eth.verify_aggregate_kzg_proof,
+        es, [bytes(bad)] + blobs[1:], comms, agg)
+    run("verify_aggregate_tampered_proof", eth.verify_aggregate_kzg_proof,
+        es, blobs, comms, proof)
+    vh = eth.kzg_to_versioned_hash(comms[0])
+    inp = vh + z32 + y32 + comms[0] + proof
+    run("precompile", eth.point_evaluation_precompile, es, inp)
+    run("precompile_wrong_hash", eth.point_evaluation_precompile, es,
+        b"\x00" * 32 + inp[32:])
+    run("precompile_wrong_y", eth.point_evaluation_precompile, es,
+        vh + z32 + y1 + comms[0] + proof)
+    run("precompile_short", eth.point_evaluation_precompile, es, inp[:-1])
+    side = eth.BlobsSidecar(ETH_ROOT, ETH_SLOT, blobs, agg)
+    run("sidecar", eth.validate_blobs_sidecar, es, ETH_SLOT, ETH_ROOT, comms,
+        side)
+    run("sidecar_wrong_slot", eth.validate_blobs_sidecar, es, ETH_SLOT + 1,
+        ETH_ROOT, comms, side)
+    run("sidecar_wrong_root", eth.validate_blobs_sidecar, es, ETH_SLOT,
+        b"\x22" * 32, comms, side)
+    run("sidecar_too_few_commitments", eth.validate_blobs_sidecar, es,
+        ETH_SLOT, ETH_ROOT, comms[:2], side)
+    run("sidecar_tampered", eth.validate_blobs_sidecar, es, ETH_SLOT,
+        ETH_ROOT, comms, eth.BlobsSidecar(ETH_ROOT, ETH_SLOT, blobs, proof))
+    run("aggregate_zero_blobs", eth.compute_aggregate_kzg_proof, es, [])
+    run("verify_aggregate_zero_blobs", eth.verify_aggregate_kzg_proof, es,
+        [], [], bytes([0xC0]) + bytes(47))
+    big = bytearray(blobs[1])
+    big[32:64] = r.to_bytes(32, "little")
+    run("commit_element_ge_r", eth.blob_to_kzg_commitment, es, bytes(big))
+    run("aggregate_element_ge_r", eth.compute_aggregate_kzg_proof, es,
+        [blobs[0], bytes(big)])
+    run("commit_short_blob", eth.blob_to_kzg_commitment, es, blobs[0][:-32])
+    tx = blob_tx(eth, [vh])
+    run("txs", eth.verify_kzg_commitments_against_transactions, [tx],
+        [comms[0]])
+    run("txs_wrong_hash", eth.verify_kzg_commitments_against_transactions,
+        [tx], [comms[1]])
+    run("txs_short", eth.verify_kzg_commitments_against_transactions,
+        [bytes([eth.BLOB_TX_TYPE]) + bytes(100)], [])
+    return out
+
+
+# ---- the generic G1 FFT (tests/port/test_torch_fft_g1_generic.py) ----
+def off_subgroup_affine(n: int) -> list:
+    """n points of E(Fp) from seeded x by a square root, none of them in
+    the r-torsion, with lane 3 at infinity."""
+    from kzg_tpu_torch.field.constants import FP_MODULUS as p
+    from kzg_tpu_torch.utils import host_ec
+
+    rng = np.random.default_rng(150)
+    out = []
+    while len(out) < n:
+        x = random_ints(rng, 1, p)[0]
+        y2 = (pow(x, 3, p) + 4) % p
+        y = pow(y2, (p + 1) // 4, p)
+        if y * y % p == y2 and host_ec.g1_mul((x, y), _r()) is not None:
+            out.append((x, y))
+    out[3] = None
+    return out
+
+
+def off_subgroup_case(n: int):
+    """(affine, port points in Jacobian form with Z != 1) of n points."""
+    aff = off_subgroup_affine(16)[:n]
+    return aff, jacobian_points(aff, 151)
+
+
+FFT_G1_GENERIC_SCALE = 4

@@ -193,3 +193,61 @@ def test_tree_reduce_matches_reference():
     assert got == column_sums(aff, 3)
     assert got == recorded_affine("tree_reduce",
                                   *convert.point_to_ref(batch))
+
+
+def _proj_add_sequential(pl, p, q):
+    """RCB15 Algorithm 7 (a = 0) one product at a time."""
+    M = pl.M
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0 = M(x1, x2)
+    t1 = M(y1, y2)
+    t2 = M(z1, z2)
+    t3 = M(x1 + y1, x2 + y2) - (t0 + t1)
+    t4 = M(y1 + z1, y2 + z2) - (t1 + t2)
+    y3 = M(x1 + z1, x2 + z2) - (t0 + t2)
+    t0 = 3 * t0
+    t2 = 12 * t2
+    z3 = t1 + t2
+    t1 = t1 - t2
+    y3 = 12 * y3
+    x3 = M(t3, t1) - M(t4, y3)
+    y3 = M(t1, z3) + M(y3, t0)
+    z3 = M(z3, t4) + M(t0, t3)
+    return x3, y3, z3
+
+
+def _proj_double_sequential(pl, p):
+    """RCB15 Algorithm 9 (a = 0) one product at a time."""
+    M = pl.M
+    x, y, z = p
+    t0 = M(y, y)
+    z3 = 8 * t0
+    t1 = M(y, z)
+    t2 = 12 * M(z, z)
+    x3 = M(t2, z3)
+    y3 = t0 + t2
+    z3 = M(t1, z3)
+    t0 = t0 - 3 * t2
+    y3 = x3 + M(t0, y3)
+    x3 = 2 * M(t0, M(x, y))
+    return x3, y3, z3
+
+
+def test_plain_point_formulas_equal_one_product_at_a_time():
+    """The plain engine's point formulas take their independent products
+    in one call a tier; the limbs equal those of the formulas taken one
+    product at a time, on lazy inputs (sums of ladder outputs), with a
+    broadcast operand and the identity among the lanes."""
+    pl = gk._plain(torch.device(CPU))
+    _, pts = subgroup_points(7, 6)
+    p = pl.jac_to_proj(pts)
+    p = pl.proj_add(p, pl.proj_double(p))          # redundant limbs
+    p = tuple(torch.cat((c, i)) for c, i in zip(p, pl.identity(p[0][:1])))
+    q = tuple(c[2] for c in p)                      # (L,): broadcast
+    for a, b in ((p, p), (p, q), (q, p)):
+        got = pl.proj_add(a, b)
+        want = _proj_add_sequential(pl, a, b)
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert all(torch.equal(u, v) for u, v in
+               zip(pl.proj_double(p), _proj_double_sequential(pl, p)))

@@ -6,6 +6,8 @@ The batch inversion and the block FFT run with their layouts forced small
 (few threads a block, tiles of 2^1-2^3 values), so that several blocks,
 chunk boundaries and 2-5 passes exercise the kernels' index math."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import oracle
@@ -29,6 +31,7 @@ from kzg_tpu_torch import convert
 from kzg_tpu_torch.das.zero_poly import leaf_layout
 from kzg_tpu_torch.field import fp, fr
 from kzg_tpu_torch.field import kernels as fk
+from kzg_tpu_torch.field import limbs
 from kzg_tpu_torch.ntt.bitrev import brp_permute
 from kzg_tpu_torch.ntt.domain import FFTSettings
 
@@ -84,6 +87,21 @@ def test_pow_matches_reference(name, e):
         want = np.asarray(jfp.inv(jnp.asarray(jfp.from_int(av))))
     assert torch.equal(got, convert.words_from_ref(want, CPU))
     assert list(mod.to_int(got)) == [pow(x, e, m) for x in av]
+
+
+@pytest.mark.parametrize("name,e", [
+    ("Fr", 0), ("Fr", 1), ("Fr", 2), ("Fr", 3), ("Fr", R - 2),
+    ("Fp", fp.SPEC.modulus - 2)])
+def test_pow_plain_equals_the_mont_mul_ladder(name, e):
+    """fr_pow's plain version, a ladder of lazy products made canonical
+    once, gives the words of the ladder of canonical Montgomery products."""
+    _, mod = FIELDS[name]
+    m = mod.SPEC.modulus
+    a = mod.from_int([0, 1, m - 1] + random_ints(np.random.default_rng(43),
+                                                 5, m), CPU)
+    want = limbs.pow_static(mod.SPEC, functools.partial(limbs.mont_mul_plain,
+                                                        mod.SPEC), a, e)
+    assert torch.equal(fk.fr_pow_plain(mod.SPEC, a, e), want)
 
 
 @pytest.mark.parametrize("threads,block_lanes", [

@@ -95,6 +95,24 @@ def test_g1_sum_edge_rows(case):
     assert set(gk.LAUNCHES.values()) == {0}
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 32, 33, 64, 127, 128])
+def test_g1_sum_plain_short_rows_equal_the_full_block(n):
+    """The plain sum's shortcut for a row of at most one warp's items
+    (32 x SUM_RUN) gives the partials of the whole block, every thread
+    and the lanes past n included, with infinity in both encodings among
+    the items."""
+    assert n <= 32 * gk.SUM_RUN
+    aff = [host_ec.g1_mul(G, 7 * k + n) for k in range(2 * n)]
+    aff[n // 2] = aff[n + n // 3] = None
+    pts = with_zero_infinity(g1.from_affine_ints(aff, CPU), n + n // 3)
+    rows = JacobianPoint(*(c.reshape(2, n, 12) for c in pts))
+    got = gk._sum_pass_plain(rows)
+    want = gk._sum_pass_plain(rows, warp_rows=False)
+    assert got.x.shape == want.x.shape == (2, 1, 12)
+    assert affine(got) == affine(want) == [
+        host_sum(aff[k * n:(k + 1) * n]) for k in range(2)]
+
+
 def test_g1_sum_matches_tree_reduce_record():
     """The recorded kzg_tpu tree sum of a (3, 2) batch along axis 0."""
     aff, batch = tree_reduce_case()

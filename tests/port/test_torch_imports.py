@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of kzg_tpu_torch (the
-verification modules of curve/ too) loads neither JAX nor the JAX package,
-and builds no kernel and no host library."""
+verification modules of curve/, eth/, the persistence and the utilities
+too), the two examples of the port and chip_smoke.py loads neither JAX
+nor the JAX package, and builds no kernel and no host library."""
 
 import json
 import os
@@ -18,6 +19,12 @@ mods = [m.name for m in pkgutil.walk_packages(kzg_tpu_torch.__path__,
                                               "kzg_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+import importlib.util
+for path in ("examples/eth_blob_demo_torch.py",
+             "examples/full_das_pipeline_torch.py", "chip_smoke.py"):
+    spec = importlib.util.spec_from_file_location(
+        path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "kzg_tpu."))
              or m == "kzg_tpu")
@@ -45,8 +52,12 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.curve.pairing", "kzg_tpu_torch.curve.pairing_native",
         "kzg_tpu_torch.curve.serialization", "kzg_tpu_torch.curve.tower",
         "kzg_tpu_torch.curve.pairing_device",
-        "kzg_tpu_torch.curve.pairing_kernels"}
-    assert len(seen["modules"]) >= 34
+        "kzg_tpu_torch.curve.pairing_kernels", "kzg_tpu_torch.eth",
+        "kzg_tpu_torch.eth.settings", "kzg_tpu_torch.eth.api",
+        "kzg_tpu_torch.kzg.persist", "kzg_tpu_torch.utils.debug",
+        "kzg_tpu_torch.utils.mulcount", "kzg_tpu_torch.utils.profiling",
+        "kzg_tpu_torch.utils.benchloop"}
+    assert len(seen["modules"]) >= 42
     assert seen["loaded"] == []
     assert seen["built"] == 0
     assert seen["host_built"] == 0

@@ -194,3 +194,24 @@ def test_check_proof_multi_batch_points_at_infinity(ks):
     got = ks.check_proof_multi_batch(commitment, batch, xs, ys)
     assert got == [reference_verdict(ks, commitment, None, x, ys[i])
                    for i, x in enumerate(xs)] == [True] * 3
+
+
+@pytest.mark.parametrize("zero", [0, R, 2 * R])
+def test_check_proof_multi_batch_zero_offset_raises(ks, zero):
+    """An offset x = 0 mod r raises ValueError in both packages, before
+    anything touches the points or the values: kzg_tpu inverts each x on
+    the host (kzg_tpu/kzg/settings.py:206), the port checks for 0 first
+    (fr_batch_inv would map it to 0 and the check would go on)."""
+    from kzg_tpu.kzg import KZGSettings as RefSettings
+    from kzg_tpu.kzg import generate_testing_setup as ref_setup
+    from kzg_tpu.ntt import FFTSettings as RefFFT
+
+    xs = [BATCH_XS[0], zero, BATCH_XS[2]]
+    ys = fr.from_int(batch_case(), CPU)
+    with pytest.raises(ValueError):
+        ks.check_proof_multi_batch(None, None, xs, ys)
+    s1, _, a1, a2 = ref_setup(TEST_SECRET, CRS_SIZE)
+    ref = RefSettings(RefFFT(5), s1, a2, a1)
+    with pytest.raises(ValueError):
+        ref.check_proof_multi_batch(None, None, xs,
+                                    np.zeros((3, BATCH_M, 16), np.uint32))
