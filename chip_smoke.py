@@ -156,7 +156,19 @@ Phases; any failure raises and the script exits non-zero with no result:
      settings' 128 proofs must equal the ones before; file bytes, save
      and load seconds;
  13. examples/eth_blob_demo_torch.py and full_das_pipeline_torch.py at
-     their defaults, each in its own process, ending in its PASS line.
+     their defaults, each in its own process, ending in its PASS line;
+ 14. the sharded paths (kzg_tpu_torch.parallel) at D = 2 and D = 4 ranks,
+     each rank a process (kzg_tpu_torch/tools/sharded_check.py) joined
+     through a file store: NCCL with a card a rank where the machine has
+     D cards, else gloo with every rank on this card and the collectives
+     staged through host memory. At the PeerDAS shape the gathered
+     result of every path must equal the single-device path on the same
+     card (Fr words, points in affine form): the Fr FFT at 2^20 both
+     ways, the G1 FFT at 128 and 4096 points both ways, the
+     reverse-bit-order shuffle at 128, the MSM at 4096 points and
+     da_using_fk20_multi_sharded (128 proofs); each path's kernels must
+     launch on some rank. One line a D: the transport, ms a call on rank
+     0 and its share in collectives, rank 0's launches.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -898,6 +910,125 @@ def examples_phase(card):
         for line in lines[:-1]:
             log(f"    {line}")
     return out
+
+
+# phase 14: the ranks of the sharded paths, and the kernels each path
+# must launch on some rank (the Fr cross stages: fr_add_sub, mont_mul;
+# the G1 cross stages: g1_add, its operand's negation on fr_add_sub, K4)
+SHARDED_DS = (2, 4)
+SHARDED_TIMEOUT_S = 360
+SHARDED_KERNELS = {
+    "fft_2^20": ("fr_add_sub", "mont_mul", "fr_fft_block"),
+    "ifft_2^20": ("fr_add_sub", "mont_mul", "fr_fft_block"),
+    "fft_g1_128": ("g1_add", "fr_add_sub", "g1_glv_butterfly",
+                   "g1_window_table", "g1_fft_stage"),
+    "ifft_g1_128": ("g1_add", "fr_add_sub", "g1_glv_butterfly",
+                    "g1_window_table", "g1_fft_stage"),
+    "fft_g1_4096": ("g1_add", "fr_add_sub", "g1_glv_butterfly",
+                    "g1_window_table", "g1_fft_stage"),
+    "ifft_g1_4096": ("g1_add", "fr_add_sub", "g1_glv_butterfly",
+                     "g1_window_table", "g1_fft_stage"),
+    "brp_g1_128": (),
+    "msm_4096": ("g1_add", "fr_signed_windows", "g1_sum", "g1_horner"),
+    "fk20": ("fr_add_sub", "mont_mul", "fr_fft_block", "fr_signed_windows",
+             "g1_fixed_base_mul", "g1_sum", "g1_add", "g1_glv_butterfly",
+             "g1_window_table", "g1_fft_stage"),
+}
+
+
+def run_ranks(D: int, backend: str, work: str) -> list:
+    """Start D ranks of tools/sharded_check.py and wait for all; any rank
+    that fails or outlives SHARDED_TIMEOUT_S fails the run, and every rank
+    is stopped. Returns each rank's result."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(work, f"store{D}")
+    prefix = os.path.join(work, f"ranks{D}")
+    for path in [store] + [f"{prefix}.{r}.json" for r in range(D)]:
+        if os.path.exists(path):
+            os.remove(path)
+    logs = [os.path.join(work, f"rank{D}.{r}.log") for r in range(D)]
+    procs = []
+    try:
+        for r in range(D):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "kzg_tpu_torch.tools.sharded_check",
+                     str(r), str(D), store, prefix, backend],
+                    cwd=root, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.time() + SHARDED_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.time() > deadline):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r]) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"sharded rank {r} of {D} exited "
+                               f"{p.returncode}:\n{tail}")
+    out = []
+    for r in range(D):
+        with open(f"{prefix}.{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def sharded_phase(card):
+    """14. The sharded paths at D = 2 and 4 ranks (module docstring)."""
+    import torch
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), OUT_DIR,
+                        "sharded")
+    os.makedirs(work, exist_ok=True)
+    res, launches = {}, {}
+    for D in SHARDED_DS:
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= D else "gloo"
+        t = time.time()
+        ranks = run_ranks(D, backend, work)
+        wall = time.time() - t
+        paths = ranks[0]["paths"]
+        check(set(paths) == set(SHARDED_KERNELS),
+              f"sharded D={D}: paths {sorted(paths)}")
+        every = {}
+        for name, need in SHARDED_KERNELS.items():
+            check(paths[name]["equal"] is True,
+                  f"sharded D={D} {name}: not held against one device")
+            union = {}
+            for rk in ranks:
+                for k, v in rk["paths"][name]["launches"].items():
+                    union[k] = union.get(k, 0) + v
+                    every[k] = every.get(k, 0) + v
+            missing = [k for k in need if not union.get(k)]
+            check(not missing, f"sharded D={D} {name}: no rank launched "
+                  f"{missing}")
+        for k, v in every.items():
+            launches[k] = launches.get(k, 0) + v
+        transport = ("NCCL, tensors on the cards" if backend == "nccl" else
+                     "gloo, CUDA tensors staged through host memory")
+        where = (f"{D} ranks on {D} cards" if backend == "nccl"
+                 else f"{D} ranks on one card")
+        line = "; ".join(
+            f"{name} {p['ms']:.3f} ms "
+            f"({100 * p['collective_ms'] / p['ms']:.1f} % collectives)"
+            for name, p in paths.items())
+        log(f"[{card}] phase 14, {where}: {transport}, {cards} device(s), "
+            f"{wall:.1f} s with the ranks' start; every path equal to one "
+            f"device; rank 0, ms a call: {line}")
+        for name, p in paths.items():
+            log(f"    {name}: rank 0 launches {p['launches']}, collectives "
+                f"a call {p['collectives']}")
+        res[f"D{D}"] = {"backend": backend, "cards": cards, "where": where,
+                        "wall_s": wall,
+                        "ranks": [{"rank": rk["rank"], "paths": rk["paths"]}
+                                  for rk in ranks]}
+    return res, launches
 
 
 def main() -> int:
@@ -2873,6 +3004,8 @@ def main() -> int:
     persist_res, persist_launches = persistence_phase(
         dev, card, kmods, ks, fkm, coeffs, proofs)
     examples_res = examples_phase(card)
+    # ---- 14. the sharded paths, after every trace ----
+    sharded_res, sharded_launches = sharded_phase(card)
     late = {"eth_setup": eth_setup_launches, "eth": eth_launches,
             "fft_g1_generic": fft_generic_launches,
             "persistence": persist_launches}
@@ -2880,6 +3013,9 @@ def main() -> int:
     for row in kernels:
         row["launches_by_path"].update(
             {p: c[row["name"]] for p, c in late.items()})
+        # one call of each sharded path, summed over the ranks and D
+        row["launches_by_path"]["sharded"] = sharded_launches.get(
+            row["name"], 0)
         row["launches"] = sum(row["launches_by_path"].values())
 
     log(f"clocks after timing: {clocks()}")
@@ -2918,7 +3054,8 @@ def main() -> int:
               "decompress_129_s": decompress_s,
               "verify_profile": verify_profile, "eth": eth_res,
               "fft_g1_generic": fft_generic_res,
-              "persistence": persist_res, "examples": examples_res}
+              "persistence": persist_res, "examples": examples_res,
+              "sharded": sharded_res}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

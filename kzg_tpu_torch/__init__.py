@@ -9,8 +9,9 @@ its plain PyTorch version. This package imports neither JAX nor kzg_tpu.
 The JAX package's `field/backend.py` and `utils/jaxcache.py` have no
 counterpart: a wrapper routes by its tensor's device (the plain version
 on the CPU; on the card the kernel, or an error), and build.py keeps
-each kernel library built once per source. `parallel/` (multi-device)
-is not ported yet.
+each kernel library built once per source. Sharded execution over a
+`torch.distributed` device mesh, one process a rank, lives in
+`kzg_tpu_torch.parallel`.
 """
 
 __version__ = "0.1.0"

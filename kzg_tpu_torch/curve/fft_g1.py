@@ -89,17 +89,22 @@ def _check_plan(n: int, plan: tuple) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_host(max_scale: int, n: int, inverse: bool, plan: tuple):
+def _plan_host(max_scale: int, n: int, inverse: bool, plan: tuple,
+               inv_n: int | None = None):
     """Host tables of each stage: ("bf", d1, d2) for a radix-2 stage on
     K4, with int32 (n/2, 33) digit rows over its butterflies; ("wide", r,
     src, dst, digits) for a g1_fft_stage, with src and dst int32 (n,) and
     digits int8 (m', r, r, 2, 33). Plus the inverse's scale digits (1, 33)
-    twice when no wide stage takes the 1/n, else None."""
+    twice when no wide stage takes the scale, else None. The inverse's
+    scale is inv_n, or 1/n when it is None."""
     roots = _expanded_roots_int(max_scale)
     if inverse:
         roots = tuple(reversed(roots))
     max_width = 1 << max_scale
-    inv_n = pow(n, -1, fr.SPEC.modulus) if inverse else 1
+    if not inverse:
+        inv_n = 1
+    elif inv_n is None:
+        inv_n = pow(n, -1, fr.SPEC.modulus)
     wide = [t for t, r in enumerate(plan) if r > 2]
     fold = wide[-1] if inverse and wide else None
     perm = digit_reversal(plan)
@@ -137,9 +142,9 @@ def _plan_host(max_scale: int, n: int, inverse: bool, plan: tuple):
 
 @functools.lru_cache(maxsize=None)
 def _plan_device(max_scale: int, n: int, inverse: bool, plan: tuple,
-                 device: torch.device):
+                 device: torch.device, inv_n: int | None = None):
     """_plan_host's tables as device tensors, copied once."""
-    stages, perm, scale = _plan_host(max_scale, n, inverse, plan)
+    stages, perm, scale = _plan_host(max_scale, n, inverse, plan, inv_n)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -156,13 +161,16 @@ def _rows(d: torch.Tensor, reps: int) -> torch.Tensor:
 
 
 def _fft_g1_core(points: JacobianPoint, max_scale: int, inverse: bool,
-                 plan: tuple) -> JacobianPoint:
-    """fft_g1 on the radix plan `plan` (radices with product n)."""
+                 plan: tuple, inv_n: int | None = None) -> JacobianPoint:
+    """fft_g1 on the radix plan `plan` (radices with product n). The
+    inverse is scaled by inv_n, a canonical int, or by 1/n when it is
+    None: a sharded transform's local inverse takes 1/n of the whole."""
     n = points.x.shape[-2]
     _check_plan(n, plan)
     batch_shape = points.x.shape[:-2]
     dev = points.x.device
-    stages, perm, scale = _plan_device(max_scale, n, inverse, plan, dev)
+    stages, perm, scale = _plan_device(max_scale, n, inverse, plan, dev,
+                                       inv_n)
     pts = map_points(lambda c: c.reshape(-1, n, fp.N_WORDS), points)
     B = pts.x.shape[0]
     if perm is not None:

@@ -77,6 +77,7 @@ class FK20MultiSettings:
             inf = g1.infinity((chunk_len, 1), ks.fs.device)
             x_ext_fft_files = toeplitz_part1(ks.fs, concat_points(x, inf))
         self.x_ext_fft_files = x_ext_fft_files
+        self._block_tables = {}
 
     @classmethod
     def from_reference_arrays(cls, ks: KZGSettings, n2: int, chunk_len: int,
@@ -93,6 +94,15 @@ class FK20MultiSettings:
         """Fixed-base tables of the part-1 points for part 2, built on the
         card at first use and kept (604 MB at 8192 points)."""
         return fixed_base_tables(self.x_ext_fft_files)
+
+    def block_tables(self, start: int, stop: int) -> torch.Tensor:
+        """Fixed-base tables of the part-1 points [:, start:stop] only,
+        (l, stop - start, 64, 8, 36): a rank's block of the 2k axis in the
+        sharded pipeline. Built at first use and kept per block."""
+        if (start, stop) not in self._block_tables:
+            self._block_tables[start, stop] = fixed_base_tables(JacobianPoint(
+                *(c[:, start:stop] for c in self.x_ext_fft_files)))
+        return self._block_tables[start, stop]
 
     def _h_from_reduced(self, reduced) -> JacobianPoint:
         """reduced (n, 8) -> h, (k,) points."""

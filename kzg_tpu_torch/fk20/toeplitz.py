@@ -42,9 +42,16 @@ def toeplitz_part2(fs: FFTSettings, toeplitz_coeffs,
     """hExtFFT[i] = FFT(toeplitz_coeffs)[i] * xExtFFT[i]; coeffs
     (..., 2k, 8) against the (..., 2k) points' fixed-base tables: one
     batched g1_fixed_base_mul launch."""
-    digits = fr.scalar_windows_signed(fft(fs, toeplitz_coeffs))
+    return fixed_base_products(fft(fs, toeplitz_coeffs), x_ext_fft_tables)
+
+
+def fixed_base_products(scalars, tables: torch.Tensor) -> JacobianPoint:
+    """scalars[..., i] * B_i: Montgomery scalars (..., m, 8) against the
+    fixed-base tables (..., m, 64, 8, 36) of their points, one digit
+    recoding and one g1_fixed_base_mul launch."""
+    digits = fr.scalar_windows_signed(scalars)
     shape = tuple(digits.shape[:-1])
-    tables = x_ext_fft_tables.reshape((-1,) + x_ext_fft_tables.shape[-3:])
+    tables = tables.reshape((-1,) + tables.shape[-3:])
     if tables.shape[0] != digits[..., 0].numel():
         raise ValueError("toeplitz_part2: one table per coefficient")
     out = g1_fixed_base_mul(tables, digits.reshape(-1, FIXED_WINDOWS)

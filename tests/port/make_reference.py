@@ -379,13 +379,65 @@ def record_persist(put):
                         ph.CRS_SIZE, name)
 
 
+def record_parallel(put):
+    """kzg_tpu.parallel's Fr FFT, shuffle and MSM on make_mesh(D, axes=
+    ("elem",)) over the root conftest's virtual CPU devices, and the
+    local G1 inverse with the global 1/n (_fft_g1_core with inv_n)."""
+    from kzg_tpu.curve.fft_g1 import _fft_g1_core
+    from kzg_tpu.parallel import (
+        fft_sharded,
+        lin_comb_g1_sharded,
+        make_mesh,
+        reverse_bit_order_g1_sharded,
+    )
+
+    fs = FFTSettings(ph.PAR_SCALE)
+    vals = fr.from_int(ph.parallel_fft_input())
+    _, pts = ph.parallel_g1_case(ph.PAR_G1_N)
+    p = ph.port_to_ref(pts)
+    for D in ph.PAR_DS:
+        mesh = make_mesh(D, axes=("elem",))
+        for inverse in (False, True):
+            put(f"par_fft:{D}:{int(inverse)}", fft_sharded(
+                fs, jnp.asarray(vals), mesh, inverse=inverse), vals)
+        put(f"par_brp_g1:{D}", tuple(reverse_bit_order_g1_sharded(p, mesh)),
+            *p)
+        for n in ph.PAR_MSM_NS:
+            _, mp = ph.parallel_g1_case(n)
+            rp = ph.port_to_ref(mp)
+            sc = fr.from_int(ph.parallel_msm_scalars(n))
+            put(f"par_msm:{D}:{n}", tuple(lin_comb_g1_sharded(
+                rp, jnp.asarray(sc), mesh)), *rp, sc)
+    _, cp = ph.parallel_g1_case(ph.PAR_CORE_N)
+    rp = ph.port_to_ref(cp)
+    inv_n = jnp.asarray(fr.from_int(pow(2 * ph.PAR_CORE_N, -1,
+                                        fr.SPEC.modulus)))
+    put("par_g1_core_inv", tuple(_fft_g1_core(
+        *rp, fs.reverse_roots_of_unity, inv_n, max_width=fs.max_width)), *rp)
+
+
+def record_parallel_g1(put):
+    """kzg_tpu.parallel's G1 FFT on make_mesh(D, axes=("elem",))."""
+    from kzg_tpu.parallel import fft_g1_sharded, make_mesh
+
+    fs = FFTSettings(ph.PAR_SCALE)
+    _, pts = ph.parallel_g1_case(ph.PAR_G1_N)
+    p = ph.port_to_ref(pts)
+    for D in ph.PAR_DS:
+        mesh = make_mesh(D, axes=("elem",))
+        for inverse in (False, True):
+            put(f"par_fft_g1:{D}:{int(inverse)}", tuple(fft_g1_sharded(
+                fs, p, mesh, inverse=inverse)), *p)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
           "recovery": record_recovery, "proofs": record_proofs,
           "verify": record_verify, "verify_batch": record_verify_batch,
           "eth": record_eth, "fft_g1_generic": record_fft_g1_generic,
-          "persist": record_persist}
+          "persist": record_persist, "parallel": record_parallel,
+          "parallel_g1": record_parallel_g1}
 
 
 def main(names) -> None:

@@ -606,3 +606,29 @@ def off_subgroup_case(n: int):
 
 
 FFT_G1_GENERIC_SCALE = 4
+
+
+# ---- the sharded paths (tests/port/test_torch_parallel.py) ----
+PAR_DS = (2, 4)          # the ranks of the "elem" axis
+PAR_SCALE = 6            # their FFTSettings: a width-64 domain
+PAR_FFT_N = 32
+PAR_G1_N = 16
+PAR_MSM_NS = (16, 12)    # 12 points at D = 4: an odd block of 3
+PAR_CORE_N = 8           # the local G1 inverse with the global 1/16
+
+
+def parallel_fft_input() -> list:
+    return random_ints(np.random.default_rng(170), PAR_FFT_N, _r())
+
+
+def parallel_g1_case(n: int):
+    """(affine, port points with Z != 1) of n r-torsion points."""
+    aff = subgroup_affine(171, n)
+    return aff, jacobian_points(aff, 172)
+
+
+def parallel_msm_scalars(n: int) -> list:
+    r = _r()
+    ks = random_ints(np.random.default_rng(173), n, r)
+    ks[:3] = [0, 1, r - 1]
+    return ks

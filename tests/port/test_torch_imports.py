@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of kzg_tpu_torch (the
-verification modules of curve/, eth/, the persistence and the utilities
-too), the two examples of the port and chip_smoke.py loads neither JAX
-nor the JAX package, and builds no kernel and no host library."""
+verification modules of curve/, eth/, the persistence, the utilities and
+the sharded paths of parallel/ too), the two examples of the port,
+chip_smoke.py and the rank tools it and the sharded paths' checks start
+loads neither JAX nor the JAX package, and builds no kernel and no host
+library."""
 
 import json
 import os
@@ -21,7 +23,9 @@ for m in mods:
     importlib.import_module(m)
 import importlib.util
 for path in ("examples/eth_blob_demo_torch.py",
-             "examples/full_das_pipeline_torch.py", "chip_smoke.py"):
+             "examples/full_das_pipeline_torch.py", "chip_smoke.py",
+             "kzg_tpu_torch/tools/sharded_check.py",
+             "kzg_tpu_torch/tools/gloo_cuda_probe.py"):
     spec = importlib.util.spec_from_file_location(
         path.rsplit("/", 1)[-1][:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -56,8 +60,12 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.eth.settings", "kzg_tpu_torch.eth.api",
         "kzg_tpu_torch.kzg.persist", "kzg_tpu_torch.utils.debug",
         "kzg_tpu_torch.utils.mulcount", "kzg_tpu_torch.utils.profiling",
-        "kzg_tpu_torch.utils.benchloop"}
-    assert len(seen["modules"]) >= 42
+        "kzg_tpu_torch.utils.benchloop", "kzg_tpu_torch.parallel",
+        "kzg_tpu_torch.parallel.mesh", "kzg_tpu_torch.parallel.fft_sharded",
+        "kzg_tpu_torch.parallel.fft_g1_sharded",
+        "kzg_tpu_torch.parallel.msm_sharded",
+        "kzg_tpu_torch.parallel.fk20_sharded"}
+    assert len(seen["modules"]) >= 48
     assert seen["loaded"] == []
     assert seen["built"] == 0
     assert seen["host_built"] == 0
