@@ -168,7 +168,24 @@ Phases; any failure raises and the script exits non-zero with no result:
      reverse-bit-order shuffle at 128, the MSM at 4096 points and
      da_using_fk20_multi_sharded (128 proofs); each path's kernels must
      launch on some rank. One line a D: the transport, ms a call on rank
-     0 and its share in collectives, rank 0's launches.
+     0 and its share in collectives, rank 0's launches;
+ 15. the field-chain experiments (kzg_tpu_torch/experiments, on
+     csrc/exp_field_kernels.cu; on no path of the library): the SASS of
+     X1-C's and X2's kernels must hold IMMA.16832.U8.U8 (mma.sync u8 x u8
+     -> s32) and the other kernels' none; the three entry points at the
+     scripts' shapes, their launches counted as a path (exp_field), every
+     line correct, each case launched (X1 exp_mont_chain: A, B, C for Fr
+     and Fp, 256-deep at 2048 lanes; X2 exp_tc_mont_mul: the hybrid
+     product, the pass on the tensor cores and on the CUDA cores at 2048,
+     16384 and 131072 Fp lanes, beside K1; X12 exp_op_chain: six small Fp
+     ops, 256-deep at 2048 lanes); each case bit for bit against its
+     plain version and on a few lanes against Python ints, its device
+     time a launch from a trace, its bound (bytes, 32-bit word operations,
+     u8 tensor-core multiply-adds) and its latency bound (the depth times
+     one warp's dependent step, timed at depths 256 and 4096); K1's
+     device time beside the hybrid's for the script's 1.3x decision; and
+     torch._int_mm on signed byte digits, the q pass's column sums at
+     131072 lanes, as X2's library_ms.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -196,6 +213,8 @@ SECRET = 1927409816240961209460912649124
 # multiply-adds (2 operations each, like an FMA)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+# and the dense int8 tensor-core rate, for mma.sync u8 x u8 -> s32
+PEAK_TC_OPS = 1979e12
 OUT_DIR = "chiprun_out"
 # the kernels every FK20 multi call runs (the blob's inverse FFT and the
 # Toeplitz coefficients' FFTs on fr_fft_block, part 2's digits and
@@ -329,11 +348,13 @@ def busy_us(spans) -> float:
     return total
 
 
-def bound_ms(nbytes: float, word_products: float):
+def bound_ms(nbytes: float, word_products: float, tc_macs: float = 0.0):
     """Least time for the work: bytes at HBM rate vs 32x32->64 word
-    products (one multiply-add, 2 operations each) at the peak rate."""
+    products (one multiply-add, 2 operations each) at the peak rate and
+    u8 tensor-core multiply-adds (2 operations each) at the dense int8
+    rate; the largest."""
     tb = nbytes / PEAK_BYTES * 1e3
-    to = 2 * word_products / PEAK_OPS * 1e3
+    to = max(2 * word_products / PEAK_OPS, 2 * tc_macs / PEAK_TC_OPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1029,6 +1050,264 @@ def sharded_phase(card):
                         "ranks": [{"rank": rk["rank"], "paths": rk["paths"]}
                                   for rk in ranks]}
     return res, launches
+
+
+# phase 15: the field-chain experiments (kzg_tpu_torch/experiments), the
+# counterparts of scripts/exp_montmul.py (X1), exp_mxu_mul.py (X2) and
+# exp_addsub.py (X12): no path of the library runs their kernels. A
+# product's dependent latency comes from one warp's chain (32 lanes) at
+# two depths, CUDA events, the launch's fixed cost cancelling in the
+# difference
+EXP_LAT_DEPTHS = (256, 4096)
+EXP_SOURCE = "kzg_tpu_torch/csrc/exp_field_kernels.cu"
+EXP_MMA_KERNELS = ("mont_chain_kernel<8, 2>", "mont_chain_kernel<12, 2>",
+                   "tc_mont_mul_kernel<0>", "tc_mont_mul_kernel<1>")
+# an X12 op's work in word products (multiply-adds, 2 operations each;
+# a 32-bit add, subtract or select is half of one): mont_mul's 2N^2 + N
+# multiply-adds; add's and sub's add, subtract and select chains; the
+# carry chain; the compare and select of geq+where and cond_sub
+EXP_OP_WORD_PRODUCTS = {"mont_mul(x,c)": 300, "mod_add(x,x)": 18,
+                        "mod_sub(m,x)": 18, "carry_fold": 6,
+                        "geq+where": 12, "cond_sub": 12}
+
+
+def sass_imma(lib_path: str) -> dict:
+    """{kernel: IMMA instructions} from cuobjdump's SASS of a library."""
+    from kzg_tpu_torch import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = symbol(part.split()[0])
+        out[name.split("::")[-1]] = part.count("IMMA.16832.U8.U8")
+    return out
+
+
+def signed_byte_digits(words, n_digits: int):
+    """(lanes, N) int32 words -> (lanes, n_digits) int8 digits in
+    [-128, 127] of the same integers (base 256), for torch._int_mm."""
+    import torch
+
+    b = words.contiguous().view(torch.uint8).to(torch.int32)
+    digits, carry = [], torch.zeros_like(b[:, 0])
+    for k in range(b.shape[1]):
+        d = b[:, k] + carry
+        carry = (d >= 128).to(torch.int32)
+        digits.append(d - 256 * carry)
+    digits.append(carry)
+    out = torch.stack(digits, 1)
+    out = torch.nn.functional.pad(out, (0, n_digits - out.shape[1]))
+    return out.to(torch.int8)
+
+
+def exp_field_phase(dev, card):
+    """15. The field-chain experiments (module docstring)."""
+    import torch
+
+    from kzg_tpu_torch import build
+    from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.curve import pairing_kernels as pk
+    from kzg_tpu_torch.experiments import exp_addsub, exp_montmul, exp_mxu_mul
+    from kzg_tpu_torch.experiments import kernels as ek
+    from kzg_tpu_torch.field import kernels as fk
+
+    t_phase = time.time()
+    imma = sass_imma(build._lib_path("exp_field_kernels"))
+    for name, count in imma.items():
+        check((count > 0) == (name in EXP_MMA_KERNELS),
+              f"{name}: {count} IMMA.16832.U8.U8 instructions in its SASS")
+    log(f"[{card}] phase 15: IMMA.16832.U8.U8 (mma.sync u8 x u8 -> s32) "
+        f"in the SASS: " + ", ".join(f"{k} {v}" for k, v in imma.items()))
+
+    # the slice's path: the three entry points at the scripts' shapes,
+    # every count 0 just before and read just after
+    for m in (fk, gk, pk, ek):
+        m.reset_launches()
+    t = time.time()
+    runs = {"exp_montmul": exp_montmul.run(dev.type),
+            "exp_mxu_mul": exp_mxu_mul.run(dev.type),
+            "exp_addsub": exp_addsub.run(dev.type)}
+    torch.cuda.synchronize()
+    path_s = time.time() - t
+    cases = dict(ek.CASES)
+    launches = {**counted(fk, gk, pk), **ek.LAUNCHES}
+    for lines in runs.values():
+        for line in lines:
+            log("    " + json.dumps(line))
+            check(line["correct"] is True, f"phase 15: {line}")
+    need = ([f"exp_mont_chain:{f}:{v}" for f in ("Fr", "Fp")
+             for v in ek.VARIANTS] + [f"exp_tc_mont_mul:{m}" for m in ek.MODES]
+            + [f"exp_op_chain:{op}" for op in ek.OPS])
+    missing = [c for c in need if not cases.get(c)]
+    check(not missing, f"phase 15: no launch of {missing}")
+    check(launches["mont_mul"] > 0, "phase 15: exp_mxu_mul launched no K1")
+    log(f"[{card}] phase 15, the entry points at the scripts' shapes: "
+        f"{path_s:.1f} s; launches {cases}")
+
+    rows, detail = {}, {}
+
+    def lat_ns(fn_at):
+        """A product's (an op's) dependent latency: one warp's chain."""
+        d0, d1 = EXP_LAT_DEPTHS
+        t0, t1 = (cuda_ms(lambda d=d: fn_at(d), 5) for d in (d0, d1))
+        return (t1 - t0) / (d1 - d0) * 1e6
+
+    def add(name, replaces, key, fn, plain_fn, match, nbytes, products,
+            tc_macs, depth, lat, lanes_ok, reps=5):
+        """One shape of a kernel's row: bit for bit against the plain
+        version, a few lanes against Python ints, the device time a launch
+        from a trace, the bound and the latency bound."""
+        ref, pms = once_ms(plain_fn)
+        out = fn()
+        check(same(out, ref), f"{name} {key} differs from its plain version")
+        check(lanes_ok(out), f"{name} {key} differs from Python ints")
+        call_ms = cuda_ms(fn, reps)
+        dev_ms, caught = kernel_ms(fn, match, reps)
+        b, by = bound_ms(nbytes, products, tc_macs)
+        entry = {"shape": key, "max_abs_err": max_abs_err(out, ref),
+                 "ms": dev_ms, "plain_ms": pms, "bound_ms": b,
+                 "bound_by": by, "call_ms": call_ms, "traced": caught,
+                 "latency_ms": None if lat is None else depth * lat / 1e6,
+                 "product_latency_ns": lat}
+        if depth > 1:
+            entry["ns_a_step"] = dev_ms / depth * 1e6
+        row = rows.get(name)
+        if row is None:
+            rows[name] = {
+                "name": name, "route": "cuda", "source": EXP_SOURCE,
+                "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {"exp_field": launches[name]},
+                **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                "library_ms": None, "latency_ms": entry["latency_ms"],
+                "shape": key, "shapes": []}
+        else:
+            row["shapes"].append(entry)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     entry["max_abs_err"])
+        detail[f"{name} {key}"] = entry
+        log(f"[{card}] {name} ({key}): {dev_ms:.4f} ms on the device "
+            f"({caught} of {reps} traced), {call_ms:.4f} ms a call; plain "
+            f"{pms:.1f} ms; bound {b:.3g} ms by {by}"
+            + ("" if lat is None else
+               f"; {lat:.1f} ns a dependent step, latency bound "
+               f"{entry['latency_ms']:.4f} ms"))
+        return entry
+
+    # X1: 256-deep chains at 2048 lanes, Fr and Fp, variants A, B, C
+    depth, lanes = exp_montmul.DEPTH, exp_montmul.LANES
+    for fname in ("Fr", "Fp"):
+        spec = ek.SPECS[fname]
+        N = spec.n_words
+        a, b = exp_montmul.inputs(spec, lanes, dev)
+        a32, b32 = a[:32].contiguous(), b[:32].contiguous()
+        mq, mqm = ek.pass_macs(spec)
+        for v in ek.VARIANTS:
+            fn = functools.partial(ek.exp_mont_chain, spec, a, b, v, depth)
+            lat = lat_ns(lambda d, s=spec, v=v: ek.exp_mont_chain(
+                s, a32, b32, v, d))
+            # A and B: 2N^2 + N multiply-adds a product; C: N^2 (a*b) and
+            # the byte products its two passes need, a lane
+            products = N * N if v == "C" else 2 * N * N + N
+            tc = (mq + mqm) * lanes if v == "C" else 0
+            add("exp_mont_chain", "scripts/exp_montmul.py:210",
+                f"{fname} {v}, {lanes} lanes, depth {depth}", fn,
+                functools.partial(ek.exp_mont_chain_plain, spec, a, b, v,
+                                  depth),
+                "mont_chain_kernel", 3 * 4 * N * lanes,
+                products * lanes * depth, tc * depth, depth, lat,
+                lambda out, s=spec: exp_montmul.check_lanes(s, a, b, out,
+                                                            depth), reps=3)
+
+    # X2: one Fp product a lane and its by-constant pass, at the widths;
+    # K1 beside it from a trace, for the script's 1.3x decision
+    FP = ek.FP
+    _, _, big = exp_mxu_mul.inputs(exp_mxu_mul.WIDTHS, dev)
+    mq, mqm = ek.pass_macs(FP)
+    lat_hybrid = detail[f"exp_mont_chain Fp C, {exp_montmul.LANES} lanes, "
+                        f"depth {exp_montmul.DEPTH}"]["product_latency_ns"]
+    decisions = {}
+    for W in sorted(exp_mxu_mul.WIDTHS, reverse=True):   # the row: widest
+        a = big[W]
+        lanes_w = [0, 1, W - 1]
+        ai = exp_montmul.word_ints(a, lanes_w)
+        redc_want = [x * x * FP.r_inv % FP.modulus for x in ai]
+        pass_want = [x * FP.nprime % FP.r for x in ai]
+        for mode in ek.MODES:
+            fn = functools.partial(ek.exp_tc_mont_mul, a, a, mode)
+            want = redc_want if mode == "hybrid" else pass_want
+            hybrid = mode == "hybrid"
+            add("exp_tc_mont_mul", "scripts/exp_mxu_mul.py:257",
+                f"{mode}, {W} lanes", fn,
+                functools.partial(ek.exp_tc_mont_mul_plain, a, a, mode),
+                "cc_mul_nprime_kernel" if mode == "cc_pass"
+                else "tc_mont_mul_kernel",
+                (3 if hybrid else 2) * 48 * W,
+                (144 if hybrid else 78 if mode == "cc_pass" else 0) * W,
+                ((mq + mqm) if hybrid else mq if mode == "tc_pass" else 0)
+                * W, 1, lat_hybrid if hybrid else None,
+                lambda out, w=want: exp_montmul.word_ints(out, lanes_w) == w)
+        k1 = functools.partial(fk.mont_mul, FP, a, a)
+        check(same(k1(), ek.exp_tc_mont_mul(a, a)),
+              f"K1 and the hybrid differ at {W} lanes")
+        k1_ms, _ = kernel_ms(k1, "mont_mul_kernel", 5)
+        hyb_ms = detail[f"exp_tc_mont_mul hybrid, {W} lanes"]["ms"]
+        decisions[W] = {"k1_ms": k1_ms, "hybrid_ms": hyb_ms,
+                        "speedup": k1_ms / hyb_ms,
+                        "adopt": k1_ms / hyb_ms > exp_mxu_mul.ADOPT_SPEEDUP}
+        log(f"[{card}] X2 at {W} lanes, device time a launch: K1 "
+            f"{k1_ms:.4f} ms, hybrid {hyb_ms:.4f} ms: {k1_ms / hyb_ms:.3f}x, "
+            f"adopt (above {exp_mxu_mul.ADOPT_SPEEDUP}x): "
+            f"{decisions[W]['adopt']}")
+    # the yardstick: one PyTorch call that computes the q pass's column
+    # sums, torch._int_mm on signed byte digits (s8 x s8 -> s32) of x and
+    # of n' at the widest width; the port never calls it
+    W = exp_mxu_mul.WIDTHS[-1]
+    a = big[W]
+    dg = signed_byte_digits(a, 64)
+    nd = signed_byte_digits(FP.words([FP.nprime], dev), 64)[0]
+    ts = torch.zeros(64, 48, dtype=torch.int8, device=dev)
+    for i in range(48):
+        ts[i, i:] = nd[:48 - i]
+    cols = torch._int_mm(dg, ts)
+    lanes_w = [0, 1, W - 1]
+    got = [sum(int(c) << (8 * k) for k, c in enumerate(cols[i].tolist()))
+           % FP.r for i in lanes_w]
+    check(got == [x * FP.nprime % FP.r for x in
+                  exp_montmul.word_ints(a, lanes_w)],
+          "torch._int_mm's column sums do not give x n' mod R")
+    lib_ms = cuda_ms(lambda: torch._int_mm(dg, ts), 20)
+    x2 = rows["exp_tc_mont_mul"]
+    x2["library_ms"] = lib_ms
+    x2["library_call"] = (f"torch._int_mm, signed byte digits (s8) of x and "
+                          f"n': the q pass's column sums at {W} lanes")
+    x2["decision"] = decisions
+    log(f"[{card}] torch._int_mm, the q pass's column sums at {W} lanes: "
+        f"{lib_ms:.4f} ms")
+
+    # X12: the six ops, 256-deep chains at 2048 Fp lanes
+    depth, lanes = exp_addsub.DEPTH, exp_addsub.LANES
+    a = exp_addsub.inputs(lanes, dev)
+    a32 = a[:32].contiguous()
+    check_l = list(exp_addsub.CHECK_LANES)
+    ai = exp_montmul.word_ints(a, check_l)
+    for op in ek.OPS:
+        add("exp_op_chain", "scripts/exp_addsub.py:50",
+            f"{op}, {lanes} lanes, depth {depth}",
+            functools.partial(ek.exp_op_chain, a, op, depth),
+            functools.partial(ek.exp_op_chain_plain, a, op, depth),
+            "op_chain_kernel", 2 * 48 * lanes,
+            EXP_OP_WORD_PRODUCTS[op] * lanes * depth, 0, depth,
+            lat_ns(lambda d, op=op: ek.exp_op_chain(a32, op, d)),
+            lambda out, op=op: exp_montmul.word_ints(out, check_l) == [
+                exp_addsub.expected(op, x, depth) for x in ai])
+    phase_s = time.time() - t_phase
+    log(f"[{card}] phase 15: {phase_s:.1f} s")
+    return ({"entry_points": runs, "path_s": path_s, "phase_s": phase_s,
+             "cases": cases, "imma": imma, "shapes": detail,
+             "x2_decision": decisions}, list(rows.values()), launches)
 
 
 def main() -> int:
@@ -3017,6 +3296,14 @@ def main() -> int:
         row["launches_by_path"]["sharded"] = sharded_launches.get(
             row["name"], 0)
         row["launches"] = sum(row["launches_by_path"].values())
+    # ---- 15. the field-chain experiments, last ----
+    exp_res, exp_rows, exp_launches = exp_field_phase(dev, card)
+    path_launches["exp_field"] = exp_launches
+    for row in kernels:
+        row["launches_by_path"]["exp_field"] = exp_launches.get(
+            row["name"], 0)
+        row["launches"] = sum(row["launches_by_path"].values())
+    kernels.extend(exp_rows)
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
@@ -3055,7 +3342,7 @@ def main() -> int:
               "verify_profile": verify_profile, "eth": eth_res,
               "fft_g1_generic": fft_generic_res,
               "persistence": persist_res, "examples": examples_res,
-              "sharded": sharded_res}
+              "sharded": sharded_res, "exp_field": exp_res}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
 SOURCES = ("fr_kernels", "fr_route_kernels", "g1_kernels", "g1_fft_kernels",
            "g1_table_kernels", "g1_point_kernels", "g1_sum_kernels",
-           "pairing_kernels")
+           "pairing_kernels", "exp_field_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +74,11 @@ SIGNATURES = {
         "kzg_pairing_lines": (_P,) * 3 + (_I, _P),
         "kzg_pairing_miller_eval": (_P,) * 11 + (_I, _I, _P),
         "kzg_pairing_final_exp": (_P,) * 4 + (_I, _P),
+    },
+    "exp_field_kernels": {
+        "kzg_exp_mont_chain": (_I, _I) + (_P,) * 5 + (_I, _I, _P),
+        "kzg_exp_tc_mont_mul": (_I,) + (_P,) * 5 + (_I, _P),
+        "kzg_exp_op_chain": (_I, _P, _P, _I, _I, _P),
     },
 }
 ROOT = os.path.dirname(os.path.dirname(CSRC))

@@ -430,6 +430,103 @@ def record_parallel_g1(put):
                 fs, p, mesh, inverse=inverse)), *p)
 
 
+# the field-chain experiments: scripts/exp_montmul.py runs its work at
+# import, so its inputs and variant A's loop are written out here;
+# scripts/exp_mxu_mul.py keeps its work under main() and is imported
+EXP_DEPTH = 8
+
+
+def _exp_script(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _const_col(limbs_np):
+    return jnp.asarray(np.asarray(limbs_np, dtype=np.uint32)[:, None])
+
+
+def record_exp_field(put):
+    """X1's variant A body (mont_mul_tile in lax.fori_loop, Fr and Fp),
+    X2's interpreted pallas_hybrid_mul_fn, mxu_const_mul and
+    hybrid_mont_mul, and X12's six tile ops, on the scripts' inputs."""
+    from jax import lax
+
+    from kzg_tpu.field.pallas_kernels import (
+        _carry_fold, _cond_sub_mod, _const_tiles, _geq, mod_add_tile,
+        mod_sub_tile, mont_mul_tile)
+
+    for jmod in (fr, fp):
+        spec = jmod.SPEC
+        rng = np.random.default_rng(42)         # exp_montmul.py:219-229
+        av = np.stack([np.asarray(spec.encode(int.from_bytes(
+            rng.bytes(31), "little"))) for _ in range(64)]).T
+        a, b = av, np.ascontiguousarray(av[:, ::-1])
+        mod, npr = _const_col(spec.mod_limbs), _const_col(spec.nprime_limbs)
+        chain = jax.jit(lambda x, y: lax.fori_loop(
+            0, EXP_DEPTH, lambda _, v: mont_mul_tile(mod, npr, v, y), x))
+        put(f"exp_montmul:{spec.name}", chain(jnp.asarray(a), jnp.asarray(b)),
+            a, b, EXP_DEPTH)
+
+    mx = _exp_script("exp_mxu_mul")
+    L = mx.L
+    rng = np.random.default_rng(7)              # exp_mxu_mul.py:286-297
+
+    def draw():
+        v = 1
+        for _ in range(6):
+            v *= int(rng.integers(0, 1 << 62))
+        return v % mx.MOD
+
+    xs = [draw() for _ in range(256)]
+    ys = [draw() for _ in range(256)]
+    a16 = np.stack([mx.limbs_of(v, L) for v in xs])
+    b16 = np.stack([mx.limbs_of(v, L) for v in ys])
+    np_t = jnp.asarray(mx.toeplitz_digits(mx.NPRIME, 2 * L, 2 * L)).astype(
+        jnp.bfloat16)
+    m_t = jnp.asarray(mx.toeplitz_digits(mx.MOD, 2 * L, 4 * L)).astype(
+        jnp.bfloat16)
+    put("exp_mxu_mul:mxu_const_mul", jax.jit(
+        lambda x: mx.mxu_const_mul(x, np_t, L))(jnp.asarray(a16)), a16)
+    put("exp_mxu_mul:hybrid_mont_mul", jax.jit(
+        lambda x, y: mx.hybrid_mont_mul(x, y, np_t, m_t, jnp.asarray(
+            mx.limbs_of(mx.MOD, L))))(jnp.asarray(a16), jnp.asarray(b16)),
+        a16, b16)
+    mod_t, _ = _const_tiles(fp.SPEC)
+    planes = [jnp.asarray(v).astype(jnp.bfloat16) for v in (
+        *mx.toeplitz16_bytes(mx.NPRIME, L, L),
+        *mx.toeplitz16_bytes(mx.MOD, L, 2 * L))]
+    pk = mx.pallas_hybrid_mul_fn(256, 128, interpret=True)
+    put("exp_mxu_mul:pallas_hybrid", pk(mod_t, *planes, jnp.asarray(a16.T),
+                                        jnp.asarray(b16.T)), a16, b16)
+
+    spec = fp.SPEC
+    rng = np.random.default_rng(1)              # exp_addsub.py:59-63
+    av = np.stack([np.asarray(spec.encode(int.from_bytes(
+        rng.bytes(40), "little"))) for _ in range(64)]).T
+    mod, npr = _const_col(spec.mod_limbs), _const_col(spec.nprime_limbs)
+    ops = {                                     # exp_addsub.py:73-82
+        "mont_mul(x,c)": lambda x: mont_mul_tile(
+            mod, npr, x, jnp.broadcast_to(npr, x.shape)),
+        "mod_add(x,x)": lambda x: mod_add_tile(mod, x, x),
+        "mod_sub(m,x)": lambda x: mod_sub_tile(
+            mod, jnp.broadcast_to(mod, x.shape), x),
+        "carry_fold": lambda x: _carry_fold(x)[:x.shape[0]],
+        "geq+where": lambda x: jnp.where(
+            _geq(x, jnp.broadcast_to(mod, x.shape))[None, :], x,
+            jnp.broadcast_to(mod, x.shape)),
+        "cond_sub": lambda x: _cond_sub_mod(mod, x),
+    }
+    for name, op in ops.items():
+        chain = jax.jit(lambda x, op=op: lax.fori_loop(
+            0, EXP_DEPTH, lambda _, v: op(v), x))
+        put(f"exp_addsub:{name}", chain(jnp.asarray(av)), av, EXP_DEPTH)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
@@ -437,7 +534,7 @@ GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "verify": record_verify, "verify_batch": record_verify_batch,
           "eth": record_eth, "fft_g1_generic": record_fft_g1_generic,
           "persist": record_persist, "parallel": record_parallel,
-          "parallel_g1": record_parallel_g1}
+          "parallel_g1": record_parallel_g1, "exp_field": record_exp_field}
 
 
 def main(names) -> None:

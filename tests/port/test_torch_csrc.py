@@ -327,3 +327,46 @@ def test_frobenius_gammas_host_derivation():
                                            [3 * j + i])
                 assert (frob.a, frob.b) == \
                     pk.frobenius_gamma_ints(k)[3 * j + i]
+
+
+@pytest.mark.parametrize("spec", [fr.SPEC, fp.SPEC], ids=["Fr", "Fp"])
+def test_exp_field_nprime_words(spec):
+    """The full-width n' = -m^-1 mod R written into exp_field_kernels.cu
+    (the CUDA-core pass and X12's constant operand) equals its host
+    derivation, FieldSpec.nprime."""
+    text = source("exp_field_kernels.cu")
+    block = text[text.index(f"struct NPrime<{spec.n_words}>"):]
+    assert words_after(block, "W[", spec.n_words) == spec.nprime
+    assert spec.nprime == (-pow(spec.modulus, -1, spec.r)) % spec.r
+
+
+@pytest.mark.parametrize("fn,argc,first", [
+    ("kzg_exp_mont_chain", 10, "n_words"),
+    ("kzg_exp_tc_mont_mul", 8, "mode"),
+    ("kzg_exp_op_chain", 6, "op")])
+def test_exp_field_entry_points(fn, argc, first):
+    """The experiments' entry points are bound with their C argument
+    counts, and their case numbers follow the wrapper's tuples
+    (experiments/kernels.py: VARIANTS, MODES, OPS)."""
+    from kzg_tpu_torch.experiments import kernels as ek
+
+    text = source("exp_field_kernels.cu")
+    assert "exp_field_kernels" in build.SOURCES
+    assert len(build.SIGNATURES["exp_field_kernels"][fn]) == argc
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       text).group(1).split(",")
+    assert params[0].split()[-1] == first
+    assert "// variant 0, 1, 2 = A, B, C;" in text
+    assert ek.VARIANTS == ("A", "B", "C")
+    assert "// mode 0: REDC(a*b); 1: a * n' mod R on the tensor cores; 2:" \
+        in text and ek.MODES == ("hybrid", "tc_pass", "cc_pass")
+    assert ("enum Op { kMulC = 0, kAdd, kSubFromM, kCarryChain, kGeqWhere, "
+            "kCondSub };") in text
+    assert ek.OPS == ("mont_mul(x,c)", "mod_add(x,x)", "mod_sub(m,x)",
+                      "carry_fold", "geq+where", "cond_sub")
+
+
+def test_exp_field_tensor_core_passes():
+    """X1-C and X2 issue mma.sync u8 x u8 -> s32 (no library call)."""
+    text = source("exp_field_kernels.cu")
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in text

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of kzg_tpu_torch (the
 verification modules of curve/, eth/, the persistence, the utilities and
-the sharded paths of parallel/ too), the two examples of the port,
+the sharded paths of parallel/ and the field-chain experiments of
+experiments/ too), the two examples of the port,
 chip_smoke.py and the rank tools it and the sharded paths' checks start
 loads neither JAX nor the JAX package, and builds no kernel and no host
 library."""
@@ -64,8 +65,12 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.parallel.mesh", "kzg_tpu_torch.parallel.fft_sharded",
         "kzg_tpu_torch.parallel.fft_g1_sharded",
         "kzg_tpu_torch.parallel.msm_sharded",
-        "kzg_tpu_torch.parallel.fk20_sharded"}
-    assert len(seen["modules"]) >= 48
+        "kzg_tpu_torch.parallel.fk20_sharded",
+        "kzg_tpu_torch.experiments", "kzg_tpu_torch.experiments.kernels",
+        "kzg_tpu_torch.experiments.exp_montmul",
+        "kzg_tpu_torch.experiments.exp_mxu_mul",
+        "kzg_tpu_torch.experiments.exp_addsub"}
+    assert len(seen["modules"]) >= 53
     assert seen["loaded"] == []
     assert seen["built"] == 0
     assert seen["host_built"] == 0
