@@ -185,7 +185,29 @@ Phases; any failure raises and the script exits non-zero with no result:
      one warp's dependent step, timed at depths 256 and 4096); K1's
      device time beside the hybrid's for the script's 1.3x decision; and
      torch._int_mm on signed byte digits, the q pass's column sums at
-     131072 lanes, as X2's library_ms.
+     131072 lanes, as X2's library_ms;
+ 16. the product-body experiments (kzg_tpu_torch/experiments, on
+     csrc/exp_field_kernels.cu; on no path of the library): the four
+     entry points at the scripts' shapes, their launches counted as a
+     path (exp_chain), every line correct, each case launched (X4
+     exp_ab_mul and X5 exp_carry: exp_tuple_chain's 7-product body, 64
+     deep at 2048 lanes, on mont12, lazy12, lazy13 and lazy16 and with its
+     carry in registers, in shared memory or serial; X6 exp_truth and X11
+     exp_addcost: exp_ext_chain's 8-product body in the 13-word lazy
+     domain on 2048 points, with 0, 4 or 12 extra adds, 12 subs or 12 raw
+     adds, 64 deep, X6 also 512); every case bit for bit against its plain
+     version at depth 8 and at the timed depth on all 2048 lanes (512: on
+     4 lanes), and on a few lanes against a Python-int model; subs1, a
+     check-only case of one lazy sub (subs12's words are all 0), the
+     same way; fold12's words equal to adds12's; the new kernels' ptxas
+     registers, stack and spills and their SASS instructions; each case's
+     device time a launch from a trace, its bound (each product's needed
+     multiply-adds on the chain's operand widths) and its latency bound
+     (the body's critical path times one warp's dependent product at
+     that width, timed on the serial body at depths 64 and 512, and
+     X12's carry chain for an extra op); the ns an extra op costs beside
+     adds0's body, from the traces; the warp probe (tuple3 and serial
+     on mont12 with 1 and 2 warps on each SM sub-partition).
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -1071,8 +1093,24 @@ EXP_OP_WORD_PRODUCTS = {"mont_mul(x,c)": 300, "mod_add(x,x)": 18,
                         "geq+where": 12, "cond_sub": 12}
 
 
-def sass_imma(lib_path: str) -> dict:
-    """{kernel: IMMA instructions} from cuobjdump's SASS of a library."""
+# an experiment kernel's TPU counterpart(s), by kernel
+EXP_REPLACES = {
+    "exp_mont_chain": "scripts/exp_montmul.py:210",
+    "exp_tc_mont_mul": "scripts/exp_mxu_mul.py:257",
+    "exp_op_chain": "scripts/exp_addsub.py:50",
+    "exp_tuple_chain": "scripts/exp_ab_mul.py:75; scripts/exp_carry.py:81, "
+                       ":103, :126",
+    "exp_ext_chain": "scripts/exp_truth.py:74; scripts/exp_addcost.py:95"}
+# a SASS instruction's opcode, after its offset and any predicate
+SASS_OP = r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{kernel: {"instructions", "imad", "imma"}} from cuobjdump's SASS of
+    a library: its instructions but NOPs, those of them of the IMAD
+    family, and its IMMA.16832.U8.U8 (mma.sync u8 x u8 -> s32)."""
+    import re
+
     from kzg_tpu_torch import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -1080,8 +1118,11 @@ def sass_imma(lib_path: str) -> dict:
                           text=True, check=True).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
-        name = symbol(part.split()[0])
-        out[name.split("::")[-1]] = part.count("IMMA.16832.U8.U8")
+        name = symbol(part.split()[0]).split("::")[-1]
+        ops = [op for op in re.findall(SASS_OP, part) if op != "NOP"]
+        out[name] = {"instructions": len(ops),
+                     "imad": sum(op.startswith("IMAD") for op in ops),
+                     "imma": part.count("IMMA.16832.U8.U8")}
     return out
 
 
@@ -1102,6 +1143,95 @@ def signed_byte_digits(words, n_digits: int):
     return out.to(torch.int8)
 
 
+def exp_path(phase: int, card: str, kmods, drive, need):
+    """An experiments phase's entry points as its counted path: every
+    count of kmods 0 just before drive() ({entry point: its JSON lines})
+    and read just after; each line correct, each case of `need` launched.
+    (runs, path_s, cases, launches)."""
+    import torch
+
+    from kzg_tpu_torch.experiments import kernels as ek
+
+    for m in kmods:
+        m.reset_launches()
+    t = time.time()
+    runs = drive()
+    torch.cuda.synchronize()
+    path_s = time.time() - t
+    cases, launches = dict(ek.CASES), counted(*kmods)
+    for lines in runs.values():
+        for line in lines:
+            log("    " + json.dumps(line))
+            check(line["correct"] is True, f"phase {phase}: {line}")
+    missing = [c for c in need if not cases.get(c)]
+    check(not missing, f"phase {phase}: no launch of {missing}")
+    log(f"[{card}] phase {phase}, the entry points at the scripts' shapes: "
+        f"{path_s:.1f} s; launches {cases}")
+    return runs, path_s, cases, launches
+
+
+def on_device_of(out, ref):
+    if isinstance(out, tuple):
+        return tuple(o.to(r.device) for o, r in zip(out, ref))
+    return out.to(ref.device)
+
+
+class ExpRows:
+    """The `kernels` rows of an experiments phase, a shape at a time:
+    `path` names the phase's counted path, `launches` its counts."""
+
+    def __init__(self, card: str, path: str, launches: dict):
+        self.card, self.path, self.launches = card, path, launches
+        self.rows, self.detail = {}, {}
+
+    def add(self, name, key, fn, pairs, ok, match, nbytes, products,
+            tc_macs=0.0, depth=1, lat_ms=None, reps=3, **extra):
+        """One shape of a kernel's row: bit for bit against the plain
+        version on each (kernel call, plain call) of `pairs` (the last
+        one's time is the row's plain time), ok(fn()) against Python
+        ints, the device time a launch of fn from a trace, the bound and
+        the latency bound (lat_ms; None where the shape has none)."""
+        err = 0
+        for kernel_call, plain_call in pairs:
+            ref, pms = once_ms(plain_call)
+            out = on_device_of(kernel_call(), ref)
+            check(same(out, ref), f"{name} {key} differs from its plain "
+                  f"version")
+            err = max(err, max_abs_err(out, ref))
+        check(ok(fn()), f"{name} {key} differs from Python ints")
+        call_ms = cuda_ms(fn, reps)
+        dev_ms, caught = kernel_ms(fn, match, reps)
+        b, by = bound_ms(nbytes, products, tc_macs)
+        entry = {"shape": key, "max_abs_err": err, "ms": dev_ms,
+                 "plain_ms": pms, "bound_ms": b, "bound_by": by,
+                 "call_ms": call_ms, "traced": caught, "latency_ms": lat_ms,
+                 **extra}
+        if depth > 1:
+            entry["ns_a_step"] = dev_ms / depth * 1e6
+        row = self.rows.get(name)
+        if row is None:
+            self.rows[name] = {
+                "name": name, "route": "cuda", "source": EXP_SOURCE,
+                "replaces": EXP_REPLACES[name],
+                "launches": self.launches[name],
+                "launches_by_path": {self.path: self.launches[name]},
+                **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                "library_ms": None, "latency_ms": lat_ms, "shape": key,
+                "shapes": []}
+        else:
+            row["shapes"].append(entry)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        self.detail[f"{name} {key}"] = entry
+        log(f"[{self.card}] {name} ({key}): {dev_ms:.4f} ms on the device "
+            f"({caught} of {reps} traced)"
+            + (f", {entry['ns_a_step']:.1f} ns a step" if depth > 1 else "")
+            + f", {call_ms:.4f} ms a call; plain {pms:.1f} ms; bound "
+            f"{b:.3g} ms by {by}"
+            + ("" if lat_ms is None else f"; latency bound {lat_ms:.4f} ms"))
+        return entry
+
+
 def exp_field_phase(dev, card):
     """15. The field-chain experiments (module docstring)."""
     import torch
@@ -1114,87 +1244,31 @@ def exp_field_phase(dev, card):
     from kzg_tpu_torch.field import kernels as fk
 
     t_phase = time.time()
-    imma = sass_imma(build._lib_path("exp_field_kernels"))
+    sass = sass_counts(build._lib_path("exp_field_kernels"))
+    imma = {k: v["imma"] for k, v in sass.items()}
     for name, count in imma.items():
         check((count > 0) == (name in EXP_MMA_KERNELS),
               f"{name}: {count} IMMA.16832.U8.U8 instructions in its SASS")
     log(f"[{card}] phase 15: IMMA.16832.U8.U8 (mma.sync u8 x u8 -> s32) "
         f"in the SASS: " + ", ".join(f"{k} {v}" for k, v in imma.items()))
 
-    # the slice's path: the three entry points at the scripts' shapes,
-    # every count 0 just before and read just after
-    for m in (fk, gk, pk, ek):
-        m.reset_launches()
-    t = time.time()
-    runs = {"exp_montmul": exp_montmul.run(dev.type),
-            "exp_mxu_mul": exp_mxu_mul.run(dev.type),
-            "exp_addsub": exp_addsub.run(dev.type)}
-    torch.cuda.synchronize()
-    path_s = time.time() - t
-    cases = dict(ek.CASES)
-    launches = {**counted(fk, gk, pk), **ek.LAUNCHES}
-    for lines in runs.values():
-        for line in lines:
-            log("    " + json.dumps(line))
-            check(line["correct"] is True, f"phase 15: {line}")
     need = ([f"exp_mont_chain:{f}:{v}" for f in ("Fr", "Fp")
              for v in ek.VARIANTS] + [f"exp_tc_mont_mul:{m}" for m in ek.MODES]
             + [f"exp_op_chain:{op}" for op in ek.OPS])
-    missing = [c for c in need if not cases.get(c)]
-    check(not missing, f"phase 15: no launch of {missing}")
+    runs, path_s, cases, launches = exp_path(15, card, (fk, gk, pk, ek),
+                                             lambda: {
+        "exp_montmul": exp_montmul.run(dev.type),
+        "exp_mxu_mul": exp_mxu_mul.run(dev.type),
+        "exp_addsub": exp_addsub.run(dev.type)}, need)
     check(launches["mont_mul"] > 0, "phase 15: exp_mxu_mul launched no K1")
-    log(f"[{card}] phase 15, the entry points at the scripts' shapes: "
-        f"{path_s:.1f} s; launches {cases}")
-
-    rows, detail = {}, {}
+    out = ExpRows(card, "exp_field", launches)
+    detail = out.detail
 
     def lat_ns(fn_at):
         """A product's (an op's) dependent latency: one warp's chain."""
         d0, d1 = EXP_LAT_DEPTHS
         t0, t1 = (cuda_ms(lambda d=d: fn_at(d), 5) for d in (d0, d1))
         return (t1 - t0) / (d1 - d0) * 1e6
-
-    def add(name, replaces, key, fn, plain_fn, match, nbytes, products,
-            tc_macs, depth, lat, lanes_ok, reps=5):
-        """One shape of a kernel's row: bit for bit against the plain
-        version, a few lanes against Python ints, the device time a launch
-        from a trace, the bound and the latency bound."""
-        ref, pms = once_ms(plain_fn)
-        out = fn()
-        check(same(out, ref), f"{name} {key} differs from its plain version")
-        check(lanes_ok(out), f"{name} {key} differs from Python ints")
-        call_ms = cuda_ms(fn, reps)
-        dev_ms, caught = kernel_ms(fn, match, reps)
-        b, by = bound_ms(nbytes, products, tc_macs)
-        entry = {"shape": key, "max_abs_err": max_abs_err(out, ref),
-                 "ms": dev_ms, "plain_ms": pms, "bound_ms": b,
-                 "bound_by": by, "call_ms": call_ms, "traced": caught,
-                 "latency_ms": None if lat is None else depth * lat / 1e6,
-                 "product_latency_ns": lat}
-        if depth > 1:
-            entry["ns_a_step"] = dev_ms / depth * 1e6
-        row = rows.get(name)
-        if row is None:
-            rows[name] = {
-                "name": name, "route": "cuda", "source": EXP_SOURCE,
-                "replaces": replaces, "launches": launches[name],
-                "launches_by_path": {"exp_field": launches[name]},
-                **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")},
-                "library_ms": None, "latency_ms": entry["latency_ms"],
-                "shape": key, "shapes": []}
-        else:
-            row["shapes"].append(entry)
-            row["max_abs_err"] = max(row["max_abs_err"],
-                                     entry["max_abs_err"])
-        detail[f"{name} {key}"] = entry
-        log(f"[{card}] {name} ({key}): {dev_ms:.4f} ms on the device "
-            f"({caught} of {reps} traced), {call_ms:.4f} ms a call; plain "
-            f"{pms:.1f} ms; bound {b:.3g} ms by {by}"
-            + ("" if lat is None else
-               f"; {lat:.1f} ns a dependent step, latency bound "
-               f"{entry['latency_ms']:.4f} ms"))
-        return entry
 
     # X1: 256-deep chains at 2048 lanes, Fr and Fp, variants A, B, C
     depth, lanes = exp_montmul.DEPTH, exp_montmul.LANES
@@ -1212,14 +1286,15 @@ def exp_field_phase(dev, card):
             # the byte products its two passes need, a lane
             products = N * N if v == "C" else 2 * N * N + N
             tc = (mq + mqm) * lanes if v == "C" else 0
-            add("exp_mont_chain", "scripts/exp_montmul.py:210",
-                f"{fname} {v}, {lanes} lanes, depth {depth}", fn,
-                functools.partial(ek.exp_mont_chain_plain, spec, a, b, v,
-                                  depth),
-                "mont_chain_kernel", 3 * 4 * N * lanes,
-                products * lanes * depth, tc * depth, depth, lat,
-                lambda out, s=spec: exp_montmul.check_lanes(s, a, b, out,
-                                                            depth), reps=3)
+            out.add("exp_mont_chain",
+                    f"{fname} {v}, {lanes} lanes, depth {depth}", fn,
+                    [(fn, functools.partial(ek.exp_mont_chain_plain, spec, a,
+                                            b, v, depth))],
+                    lambda o, s=spec: exp_montmul.check_lanes(s, a, b, o,
+                                                              depth),
+                    "mont_chain_kernel", 3 * 4 * N * lanes,
+                    products * lanes * depth, tc * depth, depth=depth,
+                    lat_ms=depth * lat / 1e6, product_latency_ns=lat)
 
     # X2: one Fp product a lane and its by-constant pass, at the widths;
     # K1 beside it from a trace, for the script's 1.3x decision
@@ -1239,16 +1314,18 @@ def exp_field_phase(dev, card):
             fn = functools.partial(ek.exp_tc_mont_mul, a, a, mode)
             want = redc_want if mode == "hybrid" else pass_want
             hybrid = mode == "hybrid"
-            add("exp_tc_mont_mul", "scripts/exp_mxu_mul.py:257",
-                f"{mode}, {W} lanes", fn,
-                functools.partial(ek.exp_tc_mont_mul_plain, a, a, mode),
-                "cc_mul_nprime_kernel" if mode == "cc_pass"
-                else "tc_mont_mul_kernel",
-                (3 if hybrid else 2) * 48 * W,
-                (144 if hybrid else 78 if mode == "cc_pass" else 0) * W,
-                ((mq + mqm) if hybrid else mq if mode == "tc_pass" else 0)
-                * W, 1, lat_hybrid if hybrid else None,
-                lambda out, w=want: exp_montmul.word_ints(out, lanes_w) == w)
+            out.add("exp_tc_mont_mul", f"{mode}, {W} lanes", fn,
+                    [(fn, functools.partial(ek.exp_tc_mont_mul_plain, a, a,
+                                            mode))],
+                    lambda o, w=want: exp_montmul.word_ints(o, lanes_w) == w,
+                    "cc_mul_nprime_kernel" if mode == "cc_pass"
+                    else "tc_mont_mul_kernel",
+                    (3 if hybrid else 2) * 48 * W,
+                    (144 if hybrid else 78 if mode == "cc_pass" else 0) * W,
+                    ((mq + mqm) if hybrid else mq if mode == "tc_pass"
+                     else 0) * W,
+                    lat_ms=lat_hybrid / 1e6 if hybrid else None, reps=5,
+                    product_latency_ns=lat_hybrid if hybrid else None)
         k1 = functools.partial(fk.mont_mul, FP, a, a)
         check(same(k1(), ek.exp_tc_mont_mul(a, a)),
               f"K1 and the hybrid differ at {W} lanes")
@@ -1279,7 +1356,7 @@ def exp_field_phase(dev, card):
                   exp_montmul.word_ints(a, lanes_w)],
           "torch._int_mm's column sums do not give x n' mod R")
     lib_ms = cuda_ms(lambda: torch._int_mm(dg, ts), 20)
-    x2 = rows["exp_tc_mont_mul"]
+    x2 = out.rows["exp_tc_mont_mul"]
     x2["library_ms"] = lib_ms
     x2["library_call"] = (f"torch._int_mm, signed byte digits (s8) of x and "
                           f"n': the q pass's column sums at {W} lanes")
@@ -1294,20 +1371,259 @@ def exp_field_phase(dev, card):
     check_l = list(exp_addsub.CHECK_LANES)
     ai = exp_montmul.word_ints(a, check_l)
     for op in ek.OPS:
-        add("exp_op_chain", "scripts/exp_addsub.py:50",
-            f"{op}, {lanes} lanes, depth {depth}",
-            functools.partial(ek.exp_op_chain, a, op, depth),
-            functools.partial(ek.exp_op_chain_plain, a, op, depth),
-            "op_chain_kernel", 2 * 48 * lanes,
-            EXP_OP_WORD_PRODUCTS[op] * lanes * depth, 0, depth,
-            lat_ns(lambda d, op=op: ek.exp_op_chain(a32, op, d)),
-            lambda out, op=op: exp_montmul.word_ints(out, check_l) == [
-                exp_addsub.expected(op, x, depth) for x in ai])
+        fn = functools.partial(ek.exp_op_chain, a, op, depth)
+        lat = lat_ns(lambda d, op=op: ek.exp_op_chain(a32, op, d))
+        out.add("exp_op_chain", f"{op}, {lanes} lanes, depth {depth}", fn,
+                [(fn, functools.partial(ek.exp_op_chain_plain, a, op,
+                                        depth))],
+                lambda o, op=op: exp_montmul.word_ints(o, check_l) == [
+                    exp_addsub.expected(op, x, depth) for x in ai],
+                "op_chain_kernel", 2 * 48 * lanes,
+                EXP_OP_WORD_PRODUCTS[op] * lanes * depth, depth=depth,
+                lat_ms=depth * lat / 1e6, reps=5, product_latency_ns=lat)
     phase_s = time.time() - t_phase
     log(f"[{card}] phase 15: {phase_s:.1f} s")
     return ({"entry_points": runs, "path_s": path_s, "phase_s": phase_s,
-             "cases": cases, "imma": imma, "shapes": detail,
-             "x2_decision": decisions}, list(rows.values()), launches)
+             "cases": cases, "imma": imma, "sass": sass, "shapes": detail,
+             "x2_decision": decisions}, list(out.rows.values()), launches)
+
+
+# phase 16: the product-body experiments (kzg_tpu_torch/experiments), the
+# counterparts of scripts/exp_ab_mul.py (X4), exp_carry.py (X5),
+# exp_truth.py (X6) and exp_addcost.py (X11): no path of the library runs
+# their kernels. A product's dependent latency at each width comes from
+# one warp's serial body (seven dependent products an iteration) at two
+# depths, CUDA events, the launch's fixed cost cancelling in the difference
+EXP_CHAIN_LAT_DEPTHS = (64, 512)
+# lanes held against the plain version at exp_truth's 512 iterations
+EXP_CHAIN_DEEP_LANES = 4
+# the critical path of each body in dependent products an iteration
+EXP_CHAIN_PATH = {"tuple3": 3, "single": 3, "serial": 7, "ext": 4}
+# an extra op's dependent 13-word chains: the lazy add one add.cc chain,
+# the lazy sub two, the raw add none (13 independent word adds); and its
+# 32-bit word adds
+EXP_EXTRA_CHAINS = {"adds": 1, "fold": 1, "subs": 2, "raw": 0}
+EXP_EXTRA_ADDS = {"adds": 13, "fold": 13, "subs": 26, "raw": 13}
+# the words of c where the product e = M(b, c) reads it, by the kernel
+# header's audit: below 1.01p (adds0) and 7.1p < 2^384 (adds4), 12; below
+# 100p (adds12, fold12), at least K m - 1.01p = 63p > 2^384 (subs), any
+# 13-word value (raw), 13. Every other operand of both bodies lies below
+# 2p: 12 words
+EXP_EXT_C_WORDS = {"adds0": 12, "adds4": 12, "adds12": 13, "fold12": 13,
+                   "subs1": 13, "subs12": 13, "raw12": 13}
+# warps on each of the card's SM sub-partitions (4 an SM) for the warp
+# probe: a second warp there fills what cycles a lone warp leaves idle
+EXP_PROBE_WARPS = (1, 2)
+
+
+def product_macs(rows: int, b_words: int = 12) -> int:
+    """The 32-bit multiply-adds one REDC product over R = 2^(32 rows)
+    needs: a b on a 12-word operand and a b_words one, q m on the
+    modulus's 12 non-zero words, and the rows' q_i."""
+    return 12 * b_words + rows * 12 + rows
+
+
+def exp_chain_phase(dev, card, ptxas, exp_res):
+    """16. The product-body experiments (module docstring). exp_res: phase
+    15's result; the carry chain of its X12 rows (one warp's dependent
+    12-word add.cc chain) is the latency bound's unit for an extra op,
+    and its SASS counts hold this phase's kernels."""
+    import torch
+
+    from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.curve import pairing_kernels as pk
+    from kzg_tpu_torch.experiments import (exp_ab_mul, exp_addcost,
+                                           exp_carry, exp_truth)
+    from kzg_tpu_torch.experiments import kernels as ek
+    from kzg_tpu_torch.field import kernels as fk
+
+    t_phase = time.time()
+    op_chain_ns = next(v["product_latency_ns"]
+                       for k, v in exp_res["shapes"].items()
+                       if k.startswith("exp_op_chain carry_fold,"))
+    regs = {k.split(":", 1)[1]: v for k, v in ptxas.items()
+            if "tuple_chain_kernel" in k or "ext_chain_kernel" in k}
+    sass = {k: v for k, v in exp_res["sass"].items()
+            if k.startswith(("tuple_chain_kernel", "ext_chain_kernel"))}
+    check(len(sass) == len(regs) and all(
+        v["instructions"] > 0 for v in sass.values()),
+        f"phase 16: SASS counts {sass} against ptxas's {sorted(regs)}")
+    for k, v in regs.items():
+        log(f"[{card}] phase 16, {k}: {v['registers']} registers, "
+            f"{v['stack_frame']} bytes stack frame, {v['spill_stores']} bytes "
+            f"spill stores, {v['spill_loads']} bytes spill loads; SASS "
+            f"{sass[k]['instructions']} instructions, {sass[k]['imad']} IMAD")
+
+    def drive():
+        ab = exp_ab_mul.run(dev.type)
+        mont12 = next(line for line in ab if line["product"] == "mont12")
+        return {"exp_ab_mul": ab,
+                "exp_carry": exp_carry.run(dev.type, tuple3=mont12),
+                "exp_truth": [exp_truth.run(dev.type)],
+                "exp_addcost": exp_addcost.run(dev.type)}
+
+    need = ([f"exp_tuple_chain:tuple3:{p}" for p in ek.PRODUCTS]
+            + ["exp_tuple_chain:single:mont12",
+               "exp_tuple_chain:serial:mont12"]
+            + [f"exp_ext_chain:{k}{n}" for k, n in ek.EXT_CASES])
+    runs, path_s, cases, launches = exp_path(16, card, (fk, gk, pk, ek),
+                                             drive, need)
+
+    # a product's dependent latency at each width: one warp's serial body
+    x = exp_ab_mul.inputs(exp_ab_mul.LANES, dev)
+    x32 = x[:32].contiguous()
+    d0, d1 = EXP_CHAIN_LAT_DEPTHS
+    per_product = {}
+    for product in ek.PRODUCTS:
+        t0, t1 = (cuda_ms(lambda d=d: ek.exp_tuple_chain(
+            x32, "serial", product, d), 5) for d in (d0, d1))
+        per_product[product] = (t1 - t0) / ((d1 - d0) * 7) * 1e6
+    log(f"[{card}] phase 16, one warp's dependent product, ns: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in per_product.items()))
+
+    # the warp probe: tuple3 and serial on mont12 at 2048 lanes and at
+    # 1 and 2 warps on each SM sub-partition (the block scheduler places
+    # the blocks of 2 warps), CUDA events
+    depth, lanes = exp_ab_mul.DEPTH, exp_ab_mul.LANES
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    probe = {}
+    for body in ("tuple3", "serial"):
+        ms = {}
+        for n in (lanes,) + tuple(sms * 4 * 32 * k for k in EXP_PROBE_WARPS):
+            xs = x.repeat(-(-n // lanes), 1)[:n].contiguous()
+            ms[n] = cuda_ms(lambda xs=xs, body=body: ek.exp_tuple_chain(
+                xs, body, "mont12", depth), 3)
+        n1, n2 = (sms * 4 * 32 * k for k in EXP_PROBE_WARPS)
+        probe[body] = {"ms_by_lanes": ms, "two_over_one": ms[n2] / ms[n1]}
+    log(f"[{card}] phase 16, warp probe on mont12, depth {depth}, ms a "
+        f"call by lanes: " + "; ".join(
+            f"{b} " + ", ".join(f"{n} {t:.4f}"
+                                for n, t in v["ms_by_lanes"].items())
+            + f" (2 warps a sub-partition over 1: {v['two_over_one']:.3f})"
+            for b, v in probe.items()))
+
+    out = ExpRows(card, "exp_chain", launches)
+    detail = out.detail
+
+    # X4, X5: the 7-product body, 2048 lanes, 64 iterations; the latency
+    # probes (serial on the lazy products) too
+    for body, product in ek.TUPLE_CASES:
+        rows = ek.PRODUCT_WORDS[product]
+        # and mont12's cond_sub: a subtract and a select a word
+        macs = product_macs(rows) + (12 if product == "mont12" else 0)
+
+        def run_at(d, xs=x, body=body, product=product):
+            return lambda: ek.exp_tuple_chain(xs, body, product, d)
+
+        def plain_at(d, xs=x, body=body, product=product):
+            return lambda: ek.exp_tuple_chain_plain(xs, body, product, d)
+
+        out.add("exp_tuple_chain", f"{body} {product}, {lanes} lanes, "
+                f"depth {depth}", run_at(depth),
+                [(run_at(8), plain_at(8)), (run_at(depth), plain_at(depth))],
+                lambda o, body=body, product=product:
+                exp_ab_mul.check_lanes(x, o, product, depth, body),
+                "tuple_chain_kernel", 2 * 48 * lanes,
+                7 * macs * lanes * depth, depth=depth,
+                lat_ms=depth * EXP_CHAIN_PATH[body] * per_product[product]
+                / 1e6)
+    t3 = detail[f"exp_tuple_chain tuple3 mont12, {lanes} lanes, depth "
+                f"{depth}"]
+    detail["exp_carry tuple3 = exp_ab_mul mont12"] = t3
+    # a step's time over its static SASS instructions (nearly all in the
+    # loop body)
+    ns_an_instruction = {
+        f"{body} mont12": detail[f"exp_tuple_chain {body} mont12, {lanes} "
+                                 f"lanes, depth {depth}"]["ns_a_step"]
+        / sass[f"tuple_chain_kernel<{ek.BODIES.index(body)}, 0>"][
+            "instructions"] for body in ("tuple3", "serial")}
+    log(f"[{card}] phase 16, ns an iteration over the kernel's SASS "
+        f"instructions: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in ns_an_instruction.items()))
+
+    # X6, X11: the lazy-domain 8-product body on the scripts' points, 64
+    # iterations (X6 also 512); subs1 a check of the lazy sub's words
+    depth, lanes = exp_addcost.DEPTH, exp_addcost.LANES
+    pts = exp_addcost.inputs(lanes, dev)
+    words = {}
+    p13 = per_product["lazy13"]
+    for kind, nextra in ek.EXT_CASES + ek.EXT_CHECK_CASES:
+        case = f"{kind}{nextra}"
+
+        def word_ops(d, kind=kind, nextra=nextra, case=case):
+            """8 products an iteration and the 6 of to_ext and from_ext,
+            e = M(b, c) on c's words; the extras' word adds (half a
+            multiply-add each); the 3 cond_subs (a subtract and a select
+            a word)"""
+            return ((8 * d + 6) * product_macs(13)
+                    + d * 12 * (EXP_EXT_C_WORDS[case] - 12)
+                    + d * nextra * EXP_EXTRA_ADDS[kind] / 2 + 3 * 12)
+
+        def run_at(d, ps=pts, kind=kind, nextra=nextra):
+            return lambda: ek.exp_ext_chain(*ps, kind, nextra, d)
+
+        def plain_at(d, ps=pts, kind=kind, nextra=nextra):
+            return lambda: ek.exp_ext_chain_plain(*ps, kind, nextra, d)
+
+        for d in ((depth, exp_truth.DEPTHS[1]) if case == "adds0"
+                  else (depth,)):
+            pairs = [(run_at(8), plain_at(8))]
+            if d == depth:
+                pairs.append((run_at(d), plain_at(d)))
+            else:       # 512 iterations: a few lanes, the plain on the CPU
+                few = tuple(c[:EXP_CHAIN_DEEP_LANES].contiguous()
+                            for c in pts)
+                pairs.append((run_at(d, few), plain_at(
+                    d, tuple(c.cpu() for c in few))))
+            out.add("exp_ext_chain", f"{case}, {lanes} lanes, depth {d}",
+                    run_at(d), pairs,
+                    lambda o, kind=kind, nextra=nextra, d=d:
+                    exp_addcost.check_lanes(pts, o, kind, nextra, d),
+                    "ext_chain_kernel", 6 * 48 * lanes,
+                    word_ops(d) * lanes, depth=d,
+                    lat_ms=(d * (EXP_CHAIN_PATH["ext"] * p13 + nextra
+                                 * EXP_EXTRA_CHAINS[kind] * op_chain_ns)
+                            + 2 * p13) / 1e6)      # and to_ext, from_ext
+            if d == depth:
+                words[case] = run_at(d)()
+    check(same(words["fold12"], words["adds12"]),
+          "phase 16: fold12's words differ from adds12's")
+    check(all(not torch.any(w) for w in words["subs12"])
+          and all(torch.any(w) for w in words["subs1"]),
+          "phase 16: subs12's words are not all 0, or subs1's are")
+    base = detail[f"exp_ext_chain adds0, {lanes} lanes, depth {depth}"]["ms"]
+    extras = {}
+    for kind, nextra in ek.EXT_CASES:
+        if nextra:
+            ms = detail[f"exp_ext_chain {kind}{nextra}, {lanes} lanes, "
+                        f"depth {depth}"]["ms"]
+            extras[f"{kind}{nextra}"] = (ms - base) / (depth * nextra) * 1e6
+    log(f"[{card}] phase 16, ns an extra op beside adds0's body (device "
+        f"time a launch): " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in extras.items()))
+    deep = detail[f"exp_ext_chain adds0, {lanes} lanes, depth "
+                  f"{exp_truth.DEPTHS[1]}"]["ms"]
+    by_depth_ns = (deep - base) / ((exp_truth.DEPTHS[1] - depth) * 8) * 1e6
+    log(f"[{card}] phase 16, X6 from traces: {by_depth_ns:.1f} ns a product "
+        f"by the depth difference; exp_truth: {json.dumps(runs['exp_truth'][0])}")
+    phase_s = time.time() - t_phase
+    log(f"[{card}] phase 16: {phase_s:.1f} s")
+    return ({"entry_points": runs, "path_s": path_s, "phase_s": phase_s,
+             "cases": cases, "ptxas": regs, "sass": sass,
+             "product_latency_ns": per_product, "warp_probe": probe,
+             "ns_an_instruction": ns_an_instruction,
+             "extra_op_chain_ns": op_chain_ns, "ns_an_extra": extras,
+             "x6_traced_ns_a_product": by_depth_ns, "shapes": detail},
+            list(out.rows.values()), launches)
+
+
+def add_path(kernels: list, path_launches: dict, path: str,
+             launches: dict) -> None:
+    """Count a phase's path in every row already in `kernels`."""
+    path_launches[path] = launches
+    for row in kernels:
+        row["launches_by_path"][path] = launches.get(row["name"], 0)
+        row["launches"] = sum(row["launches_by_path"].values())
 
 
 def main() -> int:
@@ -3298,12 +3614,13 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
     # ---- 15. the field-chain experiments, last ----
     exp_res, exp_rows, exp_launches = exp_field_phase(dev, card)
-    path_launches["exp_field"] = exp_launches
-    for row in kernels:
-        row["launches_by_path"]["exp_field"] = exp_launches.get(
-            row["name"], 0)
-        row["launches"] = sum(row["launches_by_path"].values())
+    add_path(kernels, path_launches, "exp_field", exp_launches)
     kernels.extend(exp_rows)
+    # ---- 16. the product-body experiments, last ----
+    chain_res, chain_rows, chain_launches = exp_chain_phase(
+        dev, card, ptxas, exp_res)
+    add_path(kernels, path_launches, "exp_chain", chain_launches)
+    kernels.extend(chain_rows)
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
@@ -3342,7 +3659,8 @@ def main() -> int:
               "verify_profile": verify_profile, "eth": eth_res,
               "fft_g1_generic": fft_generic_res,
               "persistence": persist_res, "examples": examples_res,
-              "sharded": sharded_res, "exp_field": exp_res}
+              "sharded": sharded_res, "exp_field": exp_res,
+              "exp_chain": chain_res}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -79,6 +79,8 @@ SIGNATURES = {
         "kzg_exp_mont_chain": (_I, _I) + (_P,) * 5 + (_I, _I, _P),
         "kzg_exp_tc_mont_mul": (_I,) + (_P,) * 5 + (_I, _P),
         "kzg_exp_op_chain": (_I, _P, _P, _I, _I, _P),
+        "kzg_exp_tuple_chain": (_I, _I, _P, _P, _I, _I, _P),
+        "kzg_exp_ext_chain": (_I, _I) + (_P,) * 6 + (_I, _I, _P),
     },
 }
 ROOT = os.path.dirname(os.path.dirname(CSRC))

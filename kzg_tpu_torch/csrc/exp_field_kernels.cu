@@ -29,6 +29,63 @@
 // sub(m, x), the carry chain x + 0 that stands in for the TPU's
 // carry_fold, x >= m ? x : m, cond_sub).
 //
+// exp_tuple_chain replaces scripts/exp_ab_mul.py::run and
+// scripts/exp_carry.py::make (X4, X5): `depth` iterations a lane of
+// a=M(x,y) b=M(y,z) c=M(z,x) d=M(a,b) e=M(b,c) f=M(d,e) g=M(e,a) with the
+// carry (f, g, c), from x = y = z = the input; it returns f. Its bodies:
+// tuple3 (the carry in registers), single (the carry written to one
+// 36-word volatile slice of shared memory and read back each iteration,
+// the counterpart of the TPU's one (72, W) array) and serial (x <- M(x, x)
+// seven times). Its products M:
+//   mont12: field.cuh's mul<12>, canonical (mont_mul_tile at 24 limbs);
+//   lazy12, lazy13, lazy16: REDC over R = 2^384, 2^416, 2^512 with no
+//      final conditional subtraction (lazy_mul_tile at 24, 25, 32 rows;
+//      one headroom word stands where the TPU had one 16-bit limb).
+// Schedules: every product runs field.cuh's split-accumulator rows
+// (mul_row: CIOS, the even and odd words' partial products on two
+// independent carry chains). lazy12 is mul<12> without its cond_sub, so
+// lazy12 against mont12 is the conditional subtraction alone. lazy16 runs
+// the rows at 16 words on the modulus padded with zeros (width alone
+// against lazy12). lazy13 has an odd width: it runs 13 rows on a 14-word
+// accumulator, its operands and modulus padded with a zero word, so each
+// of its rows costs a 14-word row (width and padding against lazy12).
+// Bounds of the rows (field.cuh's audit for any operand): a row's sum is
+// t + a b_i + q m < 2^32 (a + m) while t < a + m, so no word leaves the
+// accumulator's NA + 1 words if a + m <= 2^(32 NA); both halves' dropped
+// top carries are then 0, and REDC's output (a b + q m) / R is below
+// a b / R + m. lazy12 takes operands below 2p: 3p < 2^384, and
+// a b < 4p^2 < p 2^384 since 4p < 2^384, so its output stays below 2p
+// (below 1.41p) and the chain never leaves [0, 2p). lazy13 and lazy16
+// have 2^35 and 2^131 of headroom over p. The REDC value is unique, so
+// every lazy case equals a Python-int model word for word.
+// exp_ext_chain replaces scripts/exp_truth.py::build and
+// scripts/exp_addcost.py::variant (X6, X11): to_ext of the three
+// Jacobian coordinates (lazy13 by C_IN = 2^448 mod p: aR -> aR_ext with
+// R_ext = 2^416), `depth` iterations of a=M(x,y) b=M(y,z) c=M(z,x), then
+// NEXTRA extra ops c = E((a, b, c)[j % 3], c), then d=M(a,b) e=M(b,c)
+// f=M(d,e) g=M(e,a) h=M(f,g) with the carry (f, g, h) and M = lazy13,
+// then from_ext (lazy13 by C_OUT = 2^384 mod p, one cond_sub) of each.
+// E is the lazy add (a 13-word add.cc chain, nothing reduced: adds and
+// fold, whose carry_fold lives inside the add.cc chain on 32-bit words),
+// the lazy sub a + (K m - b) on two 13-word chains, or the raw add (per
+// 32-bit word, every carry dropped: not field arithmetic).
+// Audit of the 13-word domain: a lazy13 output is below
+// a b / 2^416 + p, so below 1.01p for operands below 2^35 p. adds12
+// doubles c on every third extra and reaches below 100p; the products
+// that take it stay below 2^416 p. subs12 runs c = src + K m - c: step 0
+// needs K m > c (K = 64, as the TPU's _kernel_ctx), but the K m of
+// steps 0 and 1 cancel, c_2 = b - a + c_0, so step 1 wraps below zero
+// where a > b + c_0 whatever K is; step 2 is c + (K m - c) = K m exactly
+// mod 2^416, which erases the wrap before any product reads c, so the
+// output is exact field arithmetic (and 0: c = K m from then on, so every
+// output of subs12 is 0). subs1, a case the scripts lack, takes one lazy
+// sub, c = a + (K m - c) with c < 1.01p < K m: no wrap, and its outputs
+// are not 0, so the sub chain's words reach what is compared. A raw
+// sum is any 13-word value: the product that takes it stays below
+// 2^416 * 2p, its output below 3p. Every case but raw12 is exact field
+// arithmetic, and from_ext's canonical words are the same field elements
+// whatever R_ext is.
+//
 // Exactness of the tensor-core passes: digits are bytes, so each u8 x u8
 // product is below 2^16, and a column of the Toeplitz product sums at most
 // 4N <= 48 of them (the padded digits of Fp are 0): every column sum is
@@ -40,11 +97,37 @@
 // 4N(4N+1)/2 for q and (4N)^2 for q*m, on the tensor cores (the mma tiles
 // also multiply Fp's padding digits and each block's zero triangle); at
 // 2048 lanes (64 warps on 132 SMs) a chain is bound by the latency of one
-// thread's (one warp's) dependent products instead. Design: the simplest
-// form of each variant; blocks of 2 warps spread the lanes over the SMs.
+// thread's (one warp's) dependent products instead: X4 and X5's tuple3 by
+// 3 dependent products of its 7 an iteration, serial by 7 of 7, X6 and
+// X11's body by 4 of 8 plus the extras' chain on c. Design: the simplest
+// form of each variant, one thread a lane; blocks of 2 warps spread the
+// lanes over the SMs.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+
+namespace kzg {
+
+// Fp's modulus padded with zero words to 14 and 16 words, for the lazy
+// products' rows (mul_row reads Field<N>::m and n0). n0 = -m^-1 mod 2^32
+// depends on the lowest word alone, so it is Fp's at every width.
+template <>
+struct Field<14> {
+  static constexpr uint32_t n0 = Field<12>::n0;
+  __device__ __forceinline__ static uint32_t m(int i) {
+    return i < 12 ? Field<12>::m(i) : 0u;
+  }
+};
+
+template <>
+struct Field<16> {
+  static constexpr uint32_t n0 = Field<12>::n0;
+  __device__ __forceinline__ static uint32_t m(int i) {
+    return i < 12 ? Field<12>::m(i) : 0u;
+  }
+};
+
+}  // namespace kzg
 
 namespace {
 
@@ -612,5 +695,340 @@ extern "C" int kzg_exp_op_chain(int op, void* out, const void* a, int n,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---- the product bodies (X4, X5, X6, X11) ----
+
+namespace {
+
+// r = lo + hi / 2^32 (hi[0] = 0): the last row's pending shift of a split
+// accumulator; the carry out of word NA-1 is dropped (the value fits).
+template <int NA>
+__device__ __forceinline__ void halves(uint32_t r[NA], const uint32_t lo[NA],
+                                       const uint32_t hi[NA]) {
+  r[0] = ptx::add_cc(lo[0], hi[1]);
+#pragma unroll
+  for (int k = 1; k < NA - 1; k++) r[k] = ptx::addc_cc(lo[k], hi[k + 1]);
+  r[NA - 1] = ptx::addc(lo[NA - 1], 0);
+}
+
+// r = REDC(a*b) over R = 2^(32 ROWS) with no final conditional
+// subtraction, mod R: ROWS of field.cuh's split-accumulator rows on NA
+// words (NA even, NA >= ROWS; a and the modulus zero-padded to NA words,
+// b's low ROWS words scanned). After an odd number of rows the halves'
+// roles are swapped. Words ROWS..NA-1 of r are set to 0. r may alias a
+// or b.
+template <int NA, int ROWS>
+__device__ __forceinline__ void lazy_mul(uint32_t r[NA], const uint32_t a[NA],
+                                         const uint32_t b[NA]) {
+  uint32_t E[NA], O[NA];
+#pragma unroll
+  for (int i = 0; i + 1 < ROWS; i += 2) {
+    kzg::mul_row<NA>(E, O, a, b[i], i == 0);
+    kzg::mul_row<NA>(O, E, a, b[i + 1], false);
+  }
+  if constexpr (ROWS % 2 == 1) {
+    kzg::mul_row<NA>(E, O, a, b[ROWS - 1], ROWS == 1);
+    halves<NA>(r, O, E);   // E[0] = 0: t / 2^32 = O + E / 2^32
+  } else {
+    halves<NA>(r, E, O);   // O[0] = 0: t / 2^32 = E + O / 2^32
+  }
+#pragma unroll
+  for (int k = ROWS; k < NA; k++) r[k] = 0;
+}
+
+// the products, by the C entry point's number, and a value's register
+// width under each
+enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16 };
+
+template <int P>
+constexpr int kWidth = P == kLazy13 ? 14 : P == kLazy16 ? 16 : 12;
+
+template <int P>
+__device__ __forceinline__ void product(uint32_t r[kWidth<P>],
+                                        const uint32_t a[kWidth<P>],
+                                        const uint32_t b[kWidth<P>]) {
+  if constexpr (P == kMont12)
+    kzg::mul<12>(r, a, b);
+  else if constexpr (P == kLazy12)
+    lazy_mul<12, 12>(r, a, b);
+  else if constexpr (P == kLazy13)
+    lazy_mul<14, 13>(r, a, b);
+  else
+    lazy_mul<16, 16>(r, a, b);
+}
+
+enum Body { kTuple3 = 0, kSingle, kSerial };
+
+// In and out: (n, 12) Fp words a lane; a value is zero-padded to its
+// product's width NA and stored as its low 12 words (every value of the
+// chain is below 2p < 2^384).
+template <int BODY, int PROD>
+__global__ void __launch_bounds__(kThreads)
+    tuple_chain_kernel(int32_t* __restrict__ out,
+                       const int32_t* __restrict__ in, int n, int depth) {
+  constexpr int NA = kWidth<PROD>;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[NA];
+#pragma unroll
+  for (int k = 0; k < NA; k++)
+    x[k] = k < 12 ? (uint32_t)in[(size_t)i * 12 + k] : 0;
+  if constexpr (BODY == kSerial) {
+#pragma unroll 1
+    for (int d = 0; d < depth; d++) {
+#pragma unroll
+      for (int s = 0; s < 7; s++) product<PROD>(x, x, x);
+    }
+  } else {
+    uint32_t y[NA], z[NA];
+    kzg::copy<NA>(y, x);
+    kzg::copy<NA>(z, x);
+    // single: the thread's 3 * NA words, one every kThreads words
+    __shared__ uint32_t carry[BODY == kSingle ? 3 * NA * kThreads : 1];
+    volatile uint32_t* w = carry + threadIdx.x;
+#pragma unroll 1
+    for (int d = 0; d < depth; d++) {
+      uint32_t a[NA], b[NA], c[NA], dd[NA], e[NA];
+      product<PROD>(a, x, y);
+      product<PROD>(b, y, z);
+      product<PROD>(c, z, x);
+      product<PROD>(dd, a, b);
+      product<PROD>(e, b, c);
+      product<PROD>(x, dd, e);   // f
+      product<PROD>(y, e, a);    // g
+      kzg::copy<NA>(z, c);
+      if constexpr (BODY == kSingle) {
+#pragma unroll
+        for (int k = 0; k < NA; k++) {
+          w[k * kThreads] = x[k];
+          w[(NA + k) * kThreads] = y[k];
+          w[(2 * NA + k) * kThreads] = z[k];
+        }
+#pragma unroll
+        for (int k = 0; k < NA; k++) {
+          x[k] = w[k * kThreads];
+          y[k] = w[(NA + k) * kThreads];
+          z[k] = w[(2 * NA + k) * kThreads];
+        }
+      }
+    }
+  }
+  kzg::store<12>(out + (size_t)i * 12, x);
+}
+
+// the 13-word lazy domain (R_ext = 2^416) of exp_ext_chain, its values in
+// 14-word registers (word 13 is 0)
+constexpr int kExtWords = 13;
+constexpr int kExtNA = 14;
+
+struct Ext {
+  // C_IN = 2^(2*416-384) mod p
+  __device__ __forceinline__ static uint32_t c_in(int i) {
+    constexpr uint32_t W[13] = {0x7dba9366u, 0x42b7fde3u, 0x27525bc3u,
+                                0x7784894eu, 0xc1f5b1e9u, 0xb2b91b9du,
+                                0xfcafb872u, 0x206f497du, 0x89a9b0bbu,
+                                0x594137ccu, 0x20d7e399u, 0x0411cd9du,
+                                0x00000000u};
+    return W[i];
+  }
+  // C_OUT = 2^384 mod p
+  __device__ __forceinline__ static uint32_t c_out(int i) {
+    constexpr uint32_t W[13] = {0x0002fffdu, 0x76090000u, 0xc40c0002u,
+                                0xebf4000bu, 0x53c758bau, 0x5f489857u,
+                                0x70525745u, 0x77ce5853u, 0xa256ec6du,
+                                0x5c071a97u, 0xfa80e493u, 0x15f65ec3u,
+                                0x00000000u};
+    return W[i];
+  }
+  // K m with K = 64, the lazy sub's offset
+  __device__ __forceinline__ static uint32_t km(int i) {
+    constexpr uint32_t W[13] = {0xffeaaac0u, 0x7fbfffffu, 0x54ffffeeu,
+                                0xaaffffacu, 0xac3d8907u, 0xcc34a83du,
+                                0xe144afd9u, 0x1dd2e13cu, 0xd2eb35d9u,
+                                0xc6e9ed90u, 0x5ff9a692u, 0x80447a8eu,
+                                0x00000006u};
+    return W[i];
+  }
+};
+
+__device__ __forceinline__ void ext_mul(uint32_t r[kExtNA],
+                                        const uint32_t a[kExtNA],
+                                        const uint32_t b[kExtNA]) {
+  lazy_mul<kExtNA, kExtWords>(r, a, b);
+}
+
+enum ExtOp { kLazyAdd = 0, kLazySub, kRawAdd };
+
+// r = E(a, b) on 13 words, mod 2^416; r may alias a or b
+template <int OP>
+__device__ __forceinline__ void ext_op(uint32_t r[kExtNA],
+                                       const uint32_t a[kExtNA],
+                                       const uint32_t b[kExtNA]) {
+  constexpr int W = kExtWords;
+  if constexpr (OP == kLazyAdd) {
+    r[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < W - 1; k++) r[k] = ptx::addc_cc(a[k], b[k]);
+    r[W - 1] = ptx::addc(a[W - 1], b[W - 1]);
+  } else if constexpr (OP == kLazySub) {
+    uint32_t t[W];   // K m - b
+    t[0] = ptx::sub_cc(Ext::km(0), b[0]);
+#pragma unroll
+    for (int k = 1; k < W - 1; k++) t[k] = ptx::subc_cc(Ext::km(k), b[k]);
+    t[W - 1] = ptx::subc(Ext::km(W - 1), b[W - 1]);
+    r[0] = ptx::add_cc(a[0], t[0]);
+#pragma unroll
+    for (int k = 1; k < W - 1; k++) r[k] = ptx::addc_cc(a[k], t[k]);
+    r[W - 1] = ptx::addc(a[W - 1], t[W - 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; k++) r[k] = a[k] + b[k];
+  }
+}
+
+// (n, 12) canonical Montgomery words (R = 2^384) -> the lazy domain
+__device__ __forceinline__ void to_ext(uint32_t v[kExtNA],
+                                       const int32_t* __restrict__ p) {
+  uint32_t c[kExtNA];
+#pragma unroll
+  for (int k = 0; k < kExtNA; k++) {
+    v[k] = k < 12 ? (uint32_t)p[k] : 0;
+    c[k] = k < kExtWords ? Ext::c_in(k) : 0;
+  }
+  ext_mul(v, v, c);
+}
+
+// the lazy domain -> canonical words: REDC by C_OUT (below 2p), cond_sub
+__device__ __forceinline__ void from_ext(int32_t* __restrict__ p,
+                                         const uint32_t v[kExtNA]) {
+  uint32_t c[kExtNA], t[kExtNA], r[12];
+#pragma unroll
+  for (int k = 0; k < kExtNA; k++) c[k] = k < kExtWords ? Ext::c_out(k) : 0;
+  ext_mul(t, v, c);
+  kzg::cond_sub<12>(r, t, t[12]);
+  kzg::store<12>(p, r);
+}
+
+template <int OP, int NEXTRA>
+__global__ void __launch_bounds__(kThreads)
+    ext_chain_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                     int32_t* __restrict__ oz, const int32_t* __restrict__ px,
+                     const int32_t* __restrict__ py,
+                     const int32_t* __restrict__ pz, int n, int depth) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t o = (size_t)i * 12;
+  uint32_t x[kExtNA], y[kExtNA], z[kExtNA];
+  to_ext(x, px + o);
+  to_ext(y, py + o);
+  to_ext(z, pz + o);
+#pragma unroll 1
+  for (int d = 0; d < depth; d++) {
+    uint32_t a[kExtNA], b[kExtNA], c[kExtNA], dd[kExtNA], e[kExtNA];
+    ext_mul(a, x, y);
+    ext_mul(b, y, z);
+    ext_mul(c, z, x);
+#pragma unroll
+    for (int j = 0; j < NEXTRA; j++) {
+      if (j % 3 == 0)
+        ext_op<OP>(c, a, c);
+      else if (j % 3 == 1)
+        ext_op<OP>(c, b, c);
+      else
+        ext_op<OP>(c, c, c);
+    }
+    ext_mul(dd, a, b);
+    ext_mul(e, b, c);
+    ext_mul(x, dd, e);   // f
+    ext_mul(y, e, a);    // g
+    ext_mul(z, x, y);    // h = M(f, g)
+  }
+  from_ext(ox + o, x);
+  from_ext(oy + o, y);
+  from_ext(oz + o, z);
+}
+
+template <int BODY, int PROD>
+void launch_tuple(void* out, const void* a, int n, int depth, cudaStream_t s) {
+  tuple_chain_kernel<BODY, PROD><<<blocks(n), kThreads, 0, s>>>(
+      (int32_t*)out, (const int32_t*)a, n, depth);
+}
+
+template <int OP, int NEXTRA>
+void launch_ext(void** o, const void** p, int n, int depth, cudaStream_t s) {
+  ext_chain_kernel<OP, NEXTRA><<<blocks(n), kThreads, 0, s>>>(
+      (int32_t*)o[0], (int32_t*)o[1], (int32_t*)o[2], (const int32_t*)p[0],
+      (const int32_t*)p[1], (const int32_t*)p[2], n, depth);
+}
+
+}  // namespace
+
+// body 0, 1, 2 = tuple3, single, serial; product 0-3 = mont12, lazy12,
+// lazy13, lazy16 (single: mont12 only)
+extern "C" int kzg_exp_tuple_chain(int body, int product, void* out,
+                                   const void* a, int n, int depth,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || depth < 0) return (int)cudaErrorInvalidValue;
+  switch (body * 4 + product) {
+    case kTuple3 * 4 + kMont12:
+      launch_tuple<kTuple3, kMont12>(out, a, n, depth, s);
+      break;
+    case kTuple3 * 4 + kLazy12:
+      launch_tuple<kTuple3, kLazy12>(out, a, n, depth, s);
+      break;
+    case kTuple3 * 4 + kLazy13:
+      launch_tuple<kTuple3, kLazy13>(out, a, n, depth, s);
+      break;
+    case kTuple3 * 4 + kLazy16:
+      launch_tuple<kTuple3, kLazy16>(out, a, n, depth, s);
+      break;
+    case kSingle * 4 + kMont12:
+      launch_tuple<kSingle, kMont12>(out, a, n, depth, s);
+      break;
+    case kSerial * 4 + kMont12:
+      launch_tuple<kSerial, kMont12>(out, a, n, depth, s);
+      break;
+    case kSerial * 4 + kLazy12:
+      launch_tuple<kSerial, kLazy12>(out, a, n, depth, s);
+      break;
+    case kSerial * 4 + kLazy13:
+      launch_tuple<kSerial, kLazy13>(out, a, n, depth, s);
+      break;
+    case kSerial * 4 + kLazy16:
+      launch_tuple<kSerial, kLazy16>(out, a, n, depth, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// op 0, 1, 2 = lazy add, lazy sub, raw add; nextra 0, 4, 12 (0 and 4:
+// the lazy add only) and 1 (the lazy sub only)
+extern "C" int kzg_exp_ext_chain(int op, int nextra, void* ox, void* oy,
+                                 void* oz, const void* px, const void* py,
+                                 const void* pz, int n, int depth,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || depth < 0) return (int)cudaErrorInvalidValue;
+  void* o[3] = {ox, oy, oz};
+  const void* p[3] = {px, py, pz};
+  if (op == kLazyAdd && nextra == 0)
+    launch_ext<kLazyAdd, 0>(o, p, n, depth, s);
+  else if (op == kLazyAdd && nextra == 4)
+    launch_ext<kLazyAdd, 4>(o, p, n, depth, s);
+  else if (op == kLazyAdd && nextra == 12)
+    launch_ext<kLazyAdd, 12>(o, p, n, depth, s);
+  else if (op == kLazySub && nextra == 1)
+    launch_ext<kLazySub, 1>(o, p, n, depth, s);
+  else if (op == kLazySub && nextra == 12)
+    launch_ext<kLazySub, 12>(o, p, n, depth, s);
+  else if (op == kRawAdd && nextra == 12)
+    launch_ext<kRawAdd, 12>(o, p, n, depth, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

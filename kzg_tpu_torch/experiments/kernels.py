@@ -11,6 +11,12 @@ with its plain PyTorch version, and their host constants.
   scripts/exp_mxu_mul.py::pallas_hybrid_mul_fn.
 - `exp_op_chain`: `depth` applications a lane of one small Fp op (OPS);
   replaces scripts/exp_addsub.py::timed.
+- `exp_tuple_chain`: `depth` iterations a lane of the 7-product body with
+  the carry (f, g, c), in a body of BODIES and a product of PRODUCTS;
+  replaces scripts/exp_ab_mul.py::run and scripts/exp_carry.py::make.
+- `exp_ext_chain`: the 8-product body in the 13-word lazy domain on three
+  point coordinates, with 0-12 extra ops on c (EXT_CASES); replaces
+  scripts/exp_truth.py::build and scripts/exp_addcost.py::variant.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to the
@@ -21,7 +27,8 @@ and each follows its kernel's algorithm: A the plain engine's product, B
 operand scanning with one reduction row a limb, C and the tensor-core pass
 the byte-Toeplitz products as an integer matrix product on the CPU. All
 end on the canonical product, which is unique, so kernel and plain version
-agree word for word.
+agree word for word. The lazy products (REDC with no final conditional
+subtraction) end on the integer (T + q m) / R, which is unique too.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ from ..field import fp, fr, limbs
 from ..field.kernels import check_words, stream_of
 from ..field.limbs import LIMB_BITS, LIMB_MASK, FieldSpec
 
-LAUNCHES = {"exp_mont_chain": 0, "exp_tc_mont_mul": 0, "exp_op_chain": 0}
-# launches by case: "exp_mont_chain:Fp:C", "exp_tc_mont_mul:hybrid", ...
+LAUNCHES = {"exp_mont_chain": 0, "exp_tc_mont_mul": 0, "exp_op_chain": 0,
+            "exp_tuple_chain": 0, "exp_ext_chain": 0}
+# launches by case: "exp_mont_chain:Fp:C", "exp_tc_mont_mul:hybrid",
+# "exp_tuple_chain:tuple3:lazy13", "exp_ext_chain:subs12", ...
 CASES: collections.Counter = collections.Counter()
 
 VARIANTS = ("A", "B", "C")
@@ -48,6 +57,31 @@ OPS = ("mont_mul(x,c)", "mod_add(x,x)", "mod_sub(m,x)", "carry_fold",
        "geq+where", "cond_sub")
 FP = fp.SPEC
 SPECS = {"Fr": fr.SPEC, "Fp": fp.SPEC}
+# the 7-product body's products and bodies, in the C entry point's order,
+# and the (body, product) pairs the library holds
+PRODUCTS = ("mont12", "lazy12", "lazy13", "lazy16")
+PRODUCT_WORDS = {"mont12": 12, "lazy12": 12, "lazy13": 13, "lazy16": 16}
+BODIES = ("tuple3", "single", "serial")
+TUPLE_CASES = (tuple(("tuple3", p) for p in PRODUCTS)
+               + (("single", "mont12"),)
+               + tuple(("serial", p) for p in PRODUCTS))
+# the 8-product body's extra ops: the C op of each kind (fold is the lazy
+# add: on 32-bit words the carry lives inside the add.cc chain), and the
+# script's six variants (kind, extras an iteration)
+EXT_OPS = {"adds": 0, "subs": 1, "fold": 0, "raw": 2}
+EXT_CASES = (("adds", 0), ("adds", 4), ("adds", 12), ("subs", 12),
+             ("fold", 12), ("raw", 12))
+# cases the scripts lack, for checks only: subs1 (subs12 leaves c = K m
+# from its third extra on, so all its outputs are 0)
+EXT_CHECK_CASES = (("subs", 1),)
+# the lazy domain of the 8-product body: 13 words, R_ext = 2^416; to_ext
+# multiplies by C_IN (aR -> aR_ext), from_ext by C_OUT; the lazy sub
+# offsets by K m
+EXT_WORDS = 13
+EXT_C_IN = pow(2, 2 * 32 * EXT_WORDS - 384, fp.SPEC.modulus)
+EXT_C_OUT = pow(2, 384, fp.SPEC.modulus)
+EXT_K = 64
+EXT_KM = EXT_K * fp.SPEC.modulus
 
 
 def reset_launches() -> None:
@@ -215,6 +249,161 @@ def exp_op_chain_plain(x, op: str, depth: int) -> torch.Tensor:
     return x
 
 
+def _up(v: torch.Tensor, d: int) -> torch.Tensor:
+    """Limbs move d places up; the top d drop out."""
+    return torch.nn.functional.pad(v[..., :-d], (d, 0))
+
+
+def _fold(v: torch.Tensor, folds: int) -> torch.Tensor:
+    """Non-negative limbs -> canonical 16-bit limbs, mod 2^(16 len):
+    `folds` carry-save folds, after which every limb must be below
+    2^17 - 1 (none for a sum of two canonical limbs, one for limbs below
+    2^32, two below 2^47, three below 2^63), then a Kogge-Stone carry
+    lookahead, as the TPU's _carry_fold."""
+    for _ in range(folds):
+        v = (v & LIMB_MASK) + _up(v >> LIMB_BITS, 1)
+    g = v >> LIMB_BITS
+    p = (v == LIMB_MASK).to(v.dtype)
+    d = 1
+    while d < v.shape[-1]:
+        g = g | (p & _up(g, d))
+        p = p & _up(p, d)
+        d *= 2
+    return (v + _up(g, 1)) & LIMB_MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _lazy_consts(n_words: int, device: torch.device):
+    """Limbs of p, -p^-1 mod 2^(32 N) and 2^(16 (L+1)) - p at L = 2N (the
+    last one L + 1 limbs: the conditional subtraction's complement)."""
+    L, m = 2 * n_words, FP.modulus
+    r = 1 << (32 * n_words)
+
+    def t(v, n):
+        return torch.tensor(limbs.int_to_limbs(v, n), dtype=torch.int64,
+                            device=device)
+
+    return t(m, L), t((-pow(m, -1, r)) % r, L), t((r << 16) - m, L + 1)
+
+
+def lazy_mul_limbs(a: torch.Tensor, b: torch.Tensor,
+                   n_words: int) -> torch.Tensor:
+    """REDC(a b) over R = 2^(32 N) with no final conditional subtraction:
+    (T + q p) / R mod R, T = a b, q = -T p^-1 mod R, on canonical limbs
+    (..., 2N), as the kernels' lazy products. T + q p < R^2 for every
+    operand pair of the bodies."""
+    mod, npr, _ = _lazy_consts(n_words, a.device)
+    L = 2 * n_words
+    cols = limbs._product_cols
+    # T's column sums (below 2^37) stand for T: their low L columns are
+    # T mod R up to multiples of R, which q does not see
+    t = torch.nn.functional.pad(cols(a, b), (0, 1))
+    q = _fold(cols(t[..., :L], npr)[..., :L], 3)        # sums below 2^59
+    s = _fold(t + torch.nn.functional.pad(cols(q, mod), (0, 1)), 2)
+    return s[..., L:]
+
+
+def cond_sub_limbs(v: torch.Tensor, n_words: int) -> torch.Tensor:
+    """v - p if v >= p else v, on canonical limbs (..., 2N) below 2p: the
+    complement sum's top limb is 0 where v >= p."""
+    comp = _lazy_consts(n_words, v.device)[2]
+    L = 2 * n_words
+    d = _fold(torch.nn.functional.pad(v, (0, 1)) + comp, 0)
+    return torch.where((d[..., L] == 0).unsqueeze(-1), d[..., :L], v)
+
+
+def _tuple_product(product: str):
+    n = PRODUCT_WORDS[product]
+    if product == "mont12":
+        return lambda a, b: cond_sub_limbs(lazy_mul_limbs(a, b, n), n)
+    return lambda a, b: lazy_mul_limbs(a, b, n)
+
+
+def _check_tuple_case(body: str, product: str) -> None:
+    if (body, product) not in TUPLE_CASES:
+        raise ValueError(f"exp_tuple_chain: case {body!r}, {product!r}")
+
+
+def _padded(x: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(lanes, 12) words -> limbs zero-padded to n_words words."""
+    v = limbs.words_to_limbs(x)
+    return torch.nn.functional.pad(v, (0, 2 * n_words - v.shape[-1]))
+
+
+def exp_tuple_chain_plain(x, body: str, product: str,
+                          depth: int) -> torch.Tensor:
+    """The 7-product body on the limb engine: the kernel's arithmetic, one
+    value a lane at its product's width, stored as its low 12 words."""
+    _check_tuple_case(body, product)
+    M = _tuple_product(product)
+    v = _padded(x, PRODUCT_WORDS[product])
+    if body == "serial":
+        for _ in range(7 * depth):
+            v = M(v, v)
+    else:       # tuple3 and single compute the same words
+        y = z = v
+        for _ in range(depth):
+            a, b, c = M(v, y), M(y, z), M(z, v)
+            d, e = M(a, b), M(b, c)
+            v, y, z = M(d, e), M(e, a), c
+    return limbs.limbs_to_words(v[..., :24])
+
+
+@functools.lru_cache(maxsize=None)
+def _ext_consts(device: torch.device):
+    """13-word limbs of C_IN, C_OUT and K m + 1 (the lazy sub's offset and
+    its complement's one)."""
+    return tuple(torch.tensor(limbs.int_to_limbs(c, 2 * EXT_WORDS),
+                              dtype=torch.int64, device=device)
+                 for c in (EXT_C_IN, EXT_C_OUT, EXT_KM + 1))
+
+
+def _ext_op_plain(kind: str, a: torch.Tensor, b: torch.Tensor):
+    """One extra op on 13-word limbs, mod 2^416: the lazy add (adds,
+    fold), a + (K m - b) as a + K m + 1 + (the limbs' complement of b)
+    (subs), or per 32-bit word a + b with the carry out of each word
+    dropped (raw)."""
+    if kind in ("adds", "fold"):
+        return _fold(a + b, 0)
+    if kind == "subs":
+        return _fold(a + _ext_consts(a.device)[2] + (LIMB_MASK - b), 1)
+    s = a + b
+    w = (s[..., 0::2] + (s[..., 1::2] << LIMB_BITS)) & 0xFFFFFFFF
+    return torch.stack((w & LIMB_MASK, w >> LIMB_BITS), dim=-1).flatten(-2)
+
+
+def _check_ext_case(kind: str, nextra: int) -> None:
+    if (kind, nextra) not in EXT_CASES + EXT_CHECK_CASES:
+        raise ValueError(f"exp_ext_chain: case {kind!r}, {nextra!r}")
+
+
+def exp_ext_chain_plain(x, y, z, kind: str, nextra: int, depth: int):
+    """The 8-product body in the 13-word lazy domain on the limb engine:
+    to_ext, `depth` iterations, from_ext (module docstring)."""
+    _check_ext_case(kind, nextra)
+    c_in, c_out, _ = _ext_consts(x.device)
+
+    def M(a, b):
+        return lazy_mul_limbs(a, b, EXT_WORDS)
+
+    def to_ext(w):
+        return M(_padded(w, EXT_WORDS), c_in)
+
+    def from_ext(v):
+        return limbs.limbs_to_words(
+            cond_sub_limbs(M(v, c_out), EXT_WORDS)[..., :24])
+
+    x, y, z = to_ext(x), to_ext(y), to_ext(z)
+    for _ in range(depth):
+        a, b, c = M(x, y), M(y, z), M(z, x)
+        for j in range(nextra):
+            c = _ext_op_plain(kind, (a, b, c)[j % 3], c)
+        d, e = M(a, b), M(b, c)
+        x, y = M(d, e), M(e, a)
+        z = M(x, y)
+    return from_ext(x), from_ext(y), from_ext(z)
+
+
 # ---- wrappers ----
 def _lanes(t: torch.Tensor, n_words: int, what: str) -> int:
     check_words(t, n_words, what)
@@ -298,6 +487,78 @@ def exp_op_chain(x, op: str, depth: int) -> torch.Tensor:
                                          x.data_ptr(), n, depth,
                                          stream_of(x)), "exp_op_chain")
     return out
+
+
+def exp_tuple_chain(x, body: str, product: str, depth: int) -> torch.Tensor:
+    """`depth` iterations a lane of a=M(x,y) b=M(y,z) c=M(z,x) d=M(a,b)
+    e=M(b,c) f=M(d,e) g=M(e,a), carry (f, g, c), from x = y = z = the
+    input; returns f. x: (lanes, 12) Fp words, below p for mont12 and
+    below 2p for the lazy products."""
+    if x.device.type == "cpu":
+        return exp_tuple_chain_plain(x, body, product, depth)
+    _check_tuple_case(body, product)
+    n = _lanes(x, 12, "exp_tuple_chain")
+    if depth < 0:
+        raise ValueError("exp_tuple_chain: depth < 0")
+    out = torch.empty_like(x)
+    if n:
+        lib = build.library("exp_field_kernels")
+        LAUNCHES["exp_tuple_chain"] += 1
+        CASES[f"exp_tuple_chain:{body}:{product}"] += 1
+        build.check(lib.kzg_exp_tuple_chain(
+            BODIES.index(body), PRODUCTS.index(product), out.data_ptr(),
+            x.data_ptr(), n, depth, stream_of(x)), "exp_tuple_chain")
+    return out
+
+
+def exp_ext_chain(x, y, z, kind: str, nextra: int, depth: int) -> tuple:
+    """to_ext, `depth` iterations a lane of the 8-product body with
+    `nextra` extra ops of `kind` on c, from_ext: (lanes, 12) canonical Fp
+    Montgomery words of three coordinates in and out."""
+    if x.device.type == "cpu":
+        return exp_ext_chain_plain(x, y, z, kind, nextra, depth)
+    _check_ext_case(kind, nextra)
+    n = _lanes(x, 12, "exp_ext_chain")
+    for t in (y, z):
+        if t.shape != x.shape or t.device != x.device \
+                or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("exp_ext_chain: y and z must match x")
+    if depth < 0:
+        raise ValueError("exp_ext_chain: depth < 0")
+    outs = tuple(torch.empty_like(x) for _ in range(3))
+    if n:
+        lib = build.library("exp_field_kernels")
+        LAUNCHES["exp_ext_chain"] += 1
+        CASES[f"exp_ext_chain:{kind}{nextra}"] += 1
+        build.check(lib.kzg_exp_ext_chain(
+            EXT_OPS[kind], nextra, *(o.data_ptr() for o in outs),
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), n, depth,
+            stream_of(x)), "exp_ext_chain")
+    return outs
+
+
+# ---- Python-int models of the lazy arithmetic ----
+@functools.lru_cache(maxsize=None)
+def _neg_pinv(n_words: int) -> int:
+    r = 1 << (32 * n_words)
+    return (-pow(FP.modulus, -1, r)) % r
+
+
+def redc_int(t: int, n_words: int) -> int:
+    """(t + q p) / R mod R with q = -t p^-1 mod R, R = 2^(32 N): REDC with
+    no conditional subtraction, the words past N dropped as the kernels
+    drop them."""
+    shift = 32 * n_words
+    mask = (1 << shift) - 1
+    q = (t * _neg_pinv(n_words)) & mask
+    return ((t + q * FP.modulus) >> shift) & mask
+
+
+def raw_add_int(a: int, b: int, n_words: int) -> int:
+    """a + b per 32-bit word, the carry out of each word dropped."""
+    mask = 0xFFFFFFFF
+    return sum((((a >> s) & mask) + ((b >> s) & mask) & mask) << s
+               for s in range(0, 32 * n_words, 32))
 
 
 # ---- work counts, for the bounds ----

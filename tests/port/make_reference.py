@@ -527,6 +527,142 @@ def record_exp_field(put):
         put(f"exp_addsub:{name}", chain(jnp.asarray(av)), av, EXP_DEPTH)
 
 
+def record_exp_chain(put):
+    """X4's and X5's 7-product bodies (mont_mul_tile at 24 rows,
+    lazy_mul_tile at 24, 25 and 32 rows on the scripts' zero-padded
+    modulus and n'; the three carries) and X6's and X11's 8-product body
+    in the lazy domain (to_ext, lazy_mul_tile at LL = 25, from_ext, on
+    _kernel_ctx's constants) for five of the six variants (raw12's
+    16-bit carries have no 32-bit counterpart) and subs1 (one lazy sub,
+    whose output is not the zero subs12 leaves), at depth EXP_DEPTH on 64
+    lanes; tuple3 and adds12 through the scripts' pl.pallas_call shapes
+    in interpret mode. The points are the port's (exp_addcost.inputs):
+    the scripts' multiples of the generator as host Jacobian
+    coordinates."""
+    from jax import lax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from kzg_tpu.field.pallas_kernels import (
+        LIMB_MASK, _carry_fold, _const_spec, lazy_add_tile, lazy_mul_tile,
+        lazy_sub_tile, mont_mul_tile)
+    from kzg_tpu_torch import convert
+    from kzg_tpu_torch.experiments import exp_addcost
+
+    spec, D, W = fp.SPEC, EXP_DEPTH, 64
+    U32 = jnp.uint32
+    rng = np.random.default_rng(3)              # exp_ab_mul.py:39-43
+    av = np.stack([np.asarray(spec.encode(int.from_bytes(
+        rng.bytes(40), "little"))) for _ in range(64)]).T.astype(np.uint32)
+
+    def seven(M, x, y, z):                      # exp_carry.py:55-63
+        a, b, c = M(x, y), M(y, z), M(z, x)
+        d, e = M(a, b), M(b, c)
+        return M(d, e), M(e, a), c
+
+    def padded(limbs_np, rows):                 # exp_ab_mul.py:47-52
+        out = np.zeros((rows, 128), np.uint32)
+        out[:24] = np.asarray(limbs_np, np.uint32)[:, None]
+        return jnp.asarray(out)
+
+    for name, rows, mul in (("mont24", 24, mont_mul_tile),
+                            ("lazy24", 24, lazy_mul_tile),
+                            ("lazy25", 25, lazy_mul_tile),
+                            ("lazy32", 32, lazy_mul_tile)):
+        mod = padded(spec.mod_limbs, rows)[:, :1]
+        npr = padded(spec.nprime_limbs, rows)[:, :1]
+        x0 = np.zeros((rows, W), np.uint32)
+        x0[:24] = av
+        chain = jax.jit(lambda x, mod=mod, npr=npr, mul=mul: lax.fori_loop(
+            0, D, lambda _, p: seven(lambda a, b: mul(mod, npr, a, b), *p),
+            (x, x, x))[0])
+        put(f"exp_ab_mul:{name}", chain(jnp.asarray(x0)), av, D)
+
+    mod_t, npr_t = padded(spec.mod_limbs, 24), padded(spec.nprime_limbs, 24)
+
+    def M24(a, b):
+        return mont_mul_tile(mod_t[:, :1], npr_t[:, :1], a, b)
+
+    def tuple3_kernel(mod_ref, npr_ref, px, py, pz, ox, oy, oz):
+        mod, npr = mod_ref[:, :1], npr_ref[:, :1]   # exp_carry.py:68-86
+        out = lax.fori_loop(0, D, lambda _, p: seven(
+            lambda a, b: mont_mul_tile(mod, npr, a, b), *p),
+            (px[:], py[:], pz[:]))
+        ox[:], oy[:], oz[:] = out
+
+    bspec = pl.BlockSpec((24, W), lambda i: (0, i), memory_space=pltpu.VMEM)
+    tuple3 = pl.pallas_call(
+        tuple3_kernel, grid=(1,), in_specs=[_const_spec(24)] * 2
+        + [bspec] * 3, out_specs=(bspec,) * 3,
+        out_shape=tuple(jax.ShapeDtypeStruct((24, W), U32)
+                        for _ in range(3)), interpret=True)
+    a = jnp.asarray(av)
+    put("exp_carry:tuple3", tuple3(mod_t, npr_t, a, a, a)[0], av, D)
+    single = jax.jit(lambda w: lax.fori_loop(     # exp_carry.py:95-99
+        0, D, lambda _, w: jnp.concatenate(seven(
+            M24, w[:24], w[24:48], w[48:]), axis=0), w)[:24])
+    put("exp_carry:single", single(jnp.concatenate([a, a, a], axis=0)),
+        av, D)
+
+    def seven_squares(_, x):                    # exp_carry.py:117-121
+        for _ in range(7):
+            x = M24(x, x)
+        return x
+
+    serial = jax.jit(lambda x: lax.fori_loop(0, D, seven_squares, x))
+    put("exp_carry:serial", serial(a), av, D)
+
+    pts = [np.ascontiguousarray(convert.words_to_ref(c).T)
+           for c in exp_addcost.inputs(W, "cpu")]
+    csts = pallas_g1._cst()[:5]
+
+    def ext_body(crefs, kind, nextra, x, y, z):   # exp_addcost.py:59-93
+        lz, cin, cout, _ = pallas_g1._kernel_ctx(crefs)
+        modx, nprx, km = lz[:3]
+
+        def M(a, b):
+            return lazy_mul_tile(modx, nprx, a, b)
+
+        E = {"adds": lazy_add_tile,
+             "subs": lambda a, b: lazy_sub_tile(km, a, b),
+             "fold": lambda a, b: _carry_fold(a + b),
+             "raw": lambda a, b: (a + b) & LIMB_MASK}[kind]
+
+        def body(_, p):
+            x, y, z = p
+            a, b, c = M(x, y), M(y, z), M(z, x)
+            for j in range(nextra):
+                c = E((a, b, c)[j % 3], c)
+            d, e = M(a, b), M(b, c)
+            f, g = M(d, e), M(e, a)
+            return f, g, M(f, g)
+
+        p = tuple(pallas_g1.to_ext(lz, cin, c) for c in (x, y, z))
+        out = lax.fori_loop(0, D, body, p)
+        return tuple(pallas_g1.from_ext(lz, cout, c) for c in out)
+
+    for kind, nextra in (("adds", 0), ("adds", 4), ("subs", 12),
+                         ("fold", 12), ("subs", 1)):
+        fn = jax.jit(lambda *v, kind=kind, nextra=nextra: ext_body(
+            v[:5], kind, nextra, *v[5:]))
+        put(f"exp_addcost:{kind}{nextra}",
+            fn(*csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+
+    def adds12_kernel(mr, nr, cir, cor, oner, px, py, pz, ox, oy, oz):
+        out = ext_body((mr, nr, cir, cor, oner), "adds", 12, px[:], py[:],
+                       pz[:])
+        ox[:], oy[:], oz[:] = out
+
+    adds12 = pl.pallas_call(                    # exp_addcost.py:95-100
+        adds12_kernel, grid=(1,),
+        in_specs=[_const_spec(pallas_g1.LL)] * 5 + [bspec] * 3,
+        out_specs=(bspec,) * 3,
+        out_shape=tuple(jax.ShapeDtypeStruct((24, W), U32)
+                        for _ in range(3)), interpret=True)
+    put("exp_addcost:adds12", adds12(*csts, *(jnp.asarray(c) for c in pts)),
+        *pts, D)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
@@ -534,7 +670,8 @@ GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "verify": record_verify, "verify_batch": record_verify_batch,
           "eth": record_eth, "fft_g1_generic": record_fft_g1_generic,
           "persist": record_persist, "parallel": record_parallel,
-          "parallel_g1": record_parallel_g1, "exp_field": record_exp_field}
+          "parallel_g1": record_parallel_g1, "exp_field": record_exp_field,
+          "exp_chain": record_exp_chain}
 
 
 def main(names) -> None:

@@ -370,3 +370,60 @@ def test_exp_field_tensor_core_passes():
     """X1-C and X2 issue mma.sync u8 x u8 -> s32 (no library call)."""
     text = source("exp_field_kernels.cu")
     assert "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32" in text
+
+
+@pytest.mark.parametrize("fn,argc,first", [
+    ("kzg_exp_tuple_chain", 7, "body"),
+    ("kzg_exp_ext_chain", 11, "op")])
+def test_exp_chain_entry_points(fn, argc, first):
+    """The product bodies' entry points are bound with their C argument
+    counts, and their case numbers follow the wrapper's (BODIES, PRODUCTS,
+    TUPLE_CASES; EXT_OPS, EXT_CASES, EXT_CHECK_CASES): the C switch
+    holds exactly the wrapper's cases."""
+    from kzg_tpu_torch.experiments import kernels as ek
+
+    text = source("exp_field_kernels.cu")
+    assert len(build.SIGNATURES["exp_field_kernels"][fn]) == argc
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       text).group(1).split(",")
+    assert params[0].split()[-1] == first
+    body = text[text.index(f'extern "C" int {fn}('):]
+    body = body[:body.index("\n}\n")]
+    assert "enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16 };" in text
+    assert "enum Body { kTuple3 = 0, kSingle, kSerial };" in text
+    assert "enum ExtOp { kLazyAdd = 0, kLazySub, kRawAdd };" in text
+    assert ek.PRODUCTS == ("mont12", "lazy12", "lazy13", "lazy16")
+    assert ek.BODIES == ("tuple3", "single", "serial")
+    assert ek.EXT_OPS == {"adds": 0, "subs": 1, "fold": 0, "raw": 2}
+    if fn == "kzg_exp_tuple_chain":
+        cases = re.findall(r"launch_tuple<k(\w+), k(\w+)>", body)
+        assert sorted((b.lower(), p.lower()) for b, p in cases) == \
+            sorted(ek.TUPLE_CASES)
+    else:
+        names = {"LazyAdd": 0, "LazySub": 1, "RawAdd": 2}
+        cases = re.findall(r"launch_ext<k(\w+), (\d+)>", body)
+        assert sorted((names[o], int(n)) for o, n in cases) == sorted(
+            {(ek.EXT_OPS[k], n)
+             for k, n in ek.EXT_CASES + ek.EXT_CHECK_CASES})
+
+
+def test_exp_chain_constants():
+    """The 13-word lazy domain's constants in exp_field_kernels.cu (C_IN,
+    C_OUT, K m) equal the wrapper's, and the lazy products' padded moduli
+    take Fp's words and n0."""
+    from kzg_tpu_torch.experiments import kernels as ek
+
+    text = source("exp_field_kernels.cu")
+    ext = text[text.index("struct Ext {"):]
+    for anchor, want in (("c_in(int i)", ek.EXT_C_IN),
+                         ("c_out(int i)", ek.EXT_C_OUT),
+                         ("km(int i)", ek.EXT_KM)):
+        assert words_after(ext, anchor, ek.EXT_WORDS) == want
+    assert ek.EXT_C_IN == pow(2, 2 * 416 - 384, fp.SPEC.modulus)
+    assert ek.EXT_C_OUT == pow(2, 384, fp.SPEC.modulus)
+    assert ek.EXT_KM == 64 * fp.SPEC.modulus < 1 << 416
+    for n in (14, 16):
+        block = text[text.index(f"struct Field<{n}> {{"):]
+        block = block[:block.index("};")]
+        assert "n0 = Field<12>::n0;" in block
+        assert "return i < 12 ? Field<12>::m(i) : 0u;" in block

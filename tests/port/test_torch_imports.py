@@ -69,8 +69,12 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.experiments", "kzg_tpu_torch.experiments.kernels",
         "kzg_tpu_torch.experiments.exp_montmul",
         "kzg_tpu_torch.experiments.exp_mxu_mul",
-        "kzg_tpu_torch.experiments.exp_addsub"}
-    assert len(seen["modules"]) >= 53
+        "kzg_tpu_torch.experiments.exp_addsub",
+        "kzg_tpu_torch.experiments.exp_ab_mul",
+        "kzg_tpu_torch.experiments.exp_carry",
+        "kzg_tpu_torch.experiments.exp_truth",
+        "kzg_tpu_torch.experiments.exp_addcost"}
+    assert len(seen["modules"]) >= 57
     assert seen["loaded"] == []
     assert seen["built"] == 0
     assert seen["host_built"] == 0
