@@ -207,7 +207,30 @@ Phases; any failure raises and the script exits non-zero with no result:
      that width, timed on the serial body at depths 64 and 512, and
      X12's carry chain for an extra op); the ns an extra op costs beside
      adds0's body, from the traces; the warp probe (tuple3 and serial
-     on mont12 with 1 and 2 warps on each SM sub-partition).
+     on mont12 with 1 and 2 warps on each SM sub-partition);
+ 17. the point-op experiments (kzg_tpu_torch/experiments, on
+     csrc/exp_point_kernels.cu and csrc/exp_field_kernels.cu; on no path
+     of the library): the five entry points at the scripts' shapes, their
+     launches counted as a path (exp_point), every line correct, each
+     case launched (X3 exp_calib: mont24, lazy25, the lazy double chain
+     and K4's GLV butterfly in one process; X7 exp_bisect: the lazy
+     7-product body as base (phase 16's lazy13 launch), transp, ctx and
+     conv; X8 exp_width: serial8 at 256 threads a block, the lazy and the
+     ladder double at 64, 256, 512 and 1024, K4 at its 64; X9
+     exp_pointops: the Jacobian double, add and window step, mul and sqr
+     chains; X10 exp_lazyops: the lazy double, add and window step beside
+     the ladder domain's, the mulref chains); every exp_point_chain case,
+     the new exp_tuple_chain bodies and the exp_ext_body bodies bit for
+     bit against their plain versions at depth 8 on all 2048 lanes, and
+     at 64 on a few lanes against Python-int models; the ladder's words
+     equal to the lazy domain's; ptxas registers, stack and spills and the
+     SASS instructions of every new instantiation, and g1_add's,
+     g1_double's, tuple_chain_kernel's and ext_chain_kernel's registers
+     as they were before lazy.cuh and g1_jac.cuh took their code; each
+     case's device time from a trace, its bound and its latency bound
+     (the chain's critical path in dependent products on lane 0's data
+     times phase 16's dependent product); X8's SM-ns a lane-op by threads
+     a block and X3's ratios to mont24.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Needs no network and
 imports nothing of JAX or kzg_tpu.
@@ -1099,8 +1122,16 @@ EXP_REPLACES = {
     "exp_tc_mont_mul": "scripts/exp_mxu_mul.py:257",
     "exp_op_chain": "scripts/exp_addsub.py:50",
     "exp_tuple_chain": "scripts/exp_ab_mul.py:75; scripts/exp_carry.py:81, "
-                       ":103, :126",
-    "exp_ext_chain": "scripts/exp_truth.py:74; scripts/exp_addcost.py:95"}
+                       ":103, :126; scripts/exp_calib.py:95; "
+                       "scripts/exp_bisect.py:116; scripts/exp_width.py:74; "
+                       "scripts/exp_pointops.py:152, :170",
+    "exp_ext_chain": "scripts/exp_truth.py:74; scripts/exp_addcost.py:95",
+    "exp_ext_body": "scripts/exp_bisect.py:116; scripts/exp_lazyops.py:186",
+    "exp_point_chain": "scripts/exp_calib.py:129; scripts/exp_width.py:102; "
+                       "scripts/exp_pointops.py:70, :127; "
+                       "scripts/exp_lazyops.py:75, :131"}
+# a kernel's source where it is not EXP_SOURCE
+EXP_SOURCES = {"exp_point_chain": "kzg_tpu_torch/csrc/exp_point_kernels.cu"}
 # a SASS instruction's opcode, after its offset and any predicate
 SASS_OP = r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
 
@@ -1211,7 +1242,8 @@ class ExpRows:
         row = self.rows.get(name)
         if row is None:
             self.rows[name] = {
-                "name": name, "route": "cuda", "source": EXP_SOURCE,
+                "name": name, "route": "cuda",
+                "source": EXP_SOURCES.get(name, EXP_SOURCE),
                 "replaces": EXP_REPLACES[name],
                 "launches": self.launches[name],
                 "launches_by_path": {self.path: self.launches[name]},
@@ -1615,6 +1647,290 @@ def exp_chain_phase(dev, card, ptxas, exp_res):
              "extra_op_chain_ns": op_chain_ns, "ns_an_extra": extras,
              "x6_traced_ns_a_product": by_depth_ns, "shapes": detail},
             list(out.rows.values()), launches)
+
+
+# phase 17: the point-op experiments (kzg_tpu_torch/experiments), the
+# counterparts of scripts/exp_calib.py (X3), exp_bisect.py (X7),
+# exp_width.py (X8), exp_pointops.py (X9) and exp_lazyops.py (X10): no path
+# of the library runs their kernels. Each case is held against its plain
+# version on every lane at depth 8 and against Python-int models at the
+# timed depth on a few lanes
+EXP_POINT_CHECK_DEPTH = 8
+# the registers, stack frame and spill bytes ptxas gave these functions
+# before lazy.cuh and g1_jac.cuh took their code out of
+# exp_field_kernels.cu and g1_point_kernels.cu (the sources before the
+# move, built with the same toolkit on an H100's machine): the move must
+# leave them as they were: registers, stack frame, spill stores and loads
+HEADER_MOVE_PTXAS = {
+    "exp_field_kernels:ext_chain_kernel<0, 0>": (122, 0, 0, 0),
+    "exp_field_kernels:ext_chain_kernel<0, 12>": (108, 0, 0, 0),
+    "exp_field_kernels:ext_chain_kernel<0, 4>": (110, 0, 0, 0),
+    "exp_field_kernels:ext_chain_kernel<1, 12>": (112, 0, 0, 0),
+    "exp_field_kernels:ext_chain_kernel<1, 1>": (122, 0, 0, 0),
+    "exp_field_kernels:ext_chain_kernel<2, 12>": (118, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<0, 0>": (86, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<0, 1>": (88, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<0, 2>": (108, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<0, 3>": (126, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<1, 0>": (86, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<2, 0>": (44, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<2, 1>": (44, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<2, 2>": (48, 0, 0, 0),
+    "exp_field_kernels:tuple_chain_kernel<2, 3>": (58, 0, 0, 0),
+    "g1_point_kernels:g1_add_kernel": (188, 288, 0, 0),
+    "g1_point_kernels:g1_double_kernel": (111, 144, 0, 0)}
+
+
+class Levels:
+    """A field of (value, level) pairs over a Python-int field F of
+    experiments/point_kernels.py: a product's level is one more than its
+    operands' largest, an add's or a sub's their largest; the formulas'
+    branches follow the values. A chain's largest output level is its
+    critical path in dependent products; `products` counts them all."""
+
+    def __init__(self, F):
+        self.F, self.products = F, 0
+
+    def M(self, a, b):
+        self.products += 1
+        return self.F.M(a[0], b[0]), max(a[1], b[1]) + 1
+
+    def A(self, a, b):
+        return self.F.A(a[0], b[0]), max(a[1], b[1])
+
+    def S(self, a, b):
+        return self.F.S(a[0], b[0]), max(a[1], b[1])
+
+    def b3_mul(self, a):
+        return self.F.b3_mul(a[0]), a[1]
+
+    def is_zero(self, a):
+        return self.F.is_zero(a[0])
+
+    def where(self, cond, a, b):
+        return a if cond else b
+
+    def one(self, like):
+        return self.F.one(like[0]), 0
+
+    def zero(self):
+        return 0, 0
+
+
+def point_chain_work(domain: str, op: str, point, depth: int) -> tuple:
+    """(critical path, products) of one lane's chain: the formulas on
+    Levels, to_ext and from_ext (lazy) one product each a coordinate."""
+    from kzg_tpu_torch.experiments import point_kernels as ptk
+
+    F = ptk.LazyField() if domain == "lazy" else ptk.MontField()
+    L = Levels(F)
+    ext = domain == "lazy"
+    p = tuple((F.to_ext(v) if ext else v, int(ext)) for v in point)
+    out = ptk._chain(L, domain, op, p, depth)
+    return (max(lvl for _, lvl in out) + int(ext),
+            L.products + (6 if ext else 0))
+
+
+def exp_point_phase(dev, card, ptxas, exp_res, chain_res):
+    """17. The point-op experiments (module docstring). exp_res and
+    chain_res: phases 15 and 16's results; phase 16's dependent product
+    latencies are the latency bounds' unit, its exp_ab_mul lazy13 line is
+    exp_bisect's base."""
+    import torch
+
+    from kzg_tpu_torch import build
+    from kzg_tpu_torch.curve import kernels as gk
+    from kzg_tpu_torch.curve import pairing_kernels as pk
+    from kzg_tpu_torch.experiments import (exp_ab_mul, exp_bisect,
+                                           exp_calib, exp_lazyops,
+                                           exp_pointops, exp_width)
+    from kzg_tpu_torch.experiments import kernels as ek
+    from kzg_tpu_torch.experiments import point_kernels as ptk
+    from kzg_tpu_torch.experiments.exp_montmul import word_ints
+    from kzg_tpu_torch.field import kernels as fk
+
+    t_phase = time.time()
+    new = ("point_chain_kernel", "ext_body_kernel", "tuple_chain_kernel<3",
+           "tuple_chain_kernel<4", "tuple_chain_kernel<5")
+    regs = {k.split(":", 1)[1]: v for k, v in ptxas.items()
+            if any(n in k for n in new)}
+    sass = {**{k: v for k, v in exp_res["sass"].items()
+               if k.startswith(new)},
+            **sass_counts(build._lib_path("exp_point_kernels"))}
+    check(set(regs) <= set(sass) and len(regs) == len(ptk.POINT_CASES)
+          + len(ek.EXT_BODIES) + len(ek.TUPLE_CASES_X789),
+          f"phase 17: ptxas reports {sorted(regs)}, SASS {sorted(sass)}")
+    for k, v in regs.items():
+        log(f"[{card}] phase 17, {k}: {v['registers']} registers, "
+            f"{v['stack_frame']} bytes stack frame, {v['spill_stores']} bytes "
+            f"spill stores, {v['spill_loads']} bytes spill loads; SASS "
+            f"{sass[k]['instructions']} instructions, {sass[k]['imad']} IMAD")
+    moved = {}
+    for k, before in HEADER_MOVE_PTXAS.items():
+        now = ptxas.get(k)
+        moved[k] = now and tuple(now[f] for f in (
+            "registers", "stack_frame", "spill_stores", "spill_loads"))
+        check(moved[k] == before, f"phase 17: {k} was {before} before the "
+              f"header moves, is {moved[k]}")
+    log(f"[{card}] phase 17, unchanged by the header moves (registers, "
+        f"stack frame, spill stores, spill loads): " + ", ".join(
+            f"{k} {v}" for k, v in moved.items()))
+
+    ab = chain_res["entry_points"]["exp_ab_mul"]
+    lazy13 = next(line for line in ab if line["product"] == "lazy13")
+
+    def drive():
+        return {"exp_calib": exp_calib.run(dev.type),
+                "exp_bisect": exp_bisect.run(dev.type, base=lazy13),
+                "exp_width": exp_width.run(dev.type),
+                "exp_pointops": exp_pointops.run(dev.type),
+                "exp_lazyops": exp_lazyops.run(dev.type)}
+
+    need = ([f"exp_point_chain:{d}:{o}:{t}" for d, o, t in ptk.POINT_CASES]
+            + [f"exp_tuple_chain:{b}:{p}" for b, p in ek.TUPLE_CASES_X789]
+            + [f"exp_ext_body:{b}" for b in ek.EXT_BODIES])
+    runs, path_s, cases, launches = exp_path(17, card, (fk, gk, pk, ek, ptk),
+                                             drive, need)
+    check(launches["g1_glv_butterfly"] > 0,
+          "phase 17: the glv lines launched no K4")
+
+    lat = chain_res["product_latency_ns"]
+    out = ExpRows(card, "exp_point", launches)
+    depth, lanes, d8 = exp_pointops.DEPTH, exp_pointops.LANES, \
+        EXP_POINT_CHECK_DEPTH
+    seed9 = exp_pointops.inputs(lanes, dev)
+    seed3 = exp_width.exp_addcost.inputs(lanes, dev, exp_width.SEED)
+    bisect = exp_bisect.points(lanes, dev)
+    lane0 = tuple(word_ints(c, [0])[0] for c in seed9)
+    words = {}
+    for domain, op, threads in ptk.POINT_CASES:
+        pts = seed9 if threads == 64 else seed3
+        path, products = point_chain_work(domain, op, lane0, depth)
+        macs = product_macs(13, 13) if domain == "lazy" else \
+            product_macs(12) + 12
+
+        def run_at(d, domain=domain, op=op, threads=threads, pts=pts):
+            return lambda: ptk.exp_point_chain(*pts, domain, op, d, threads)
+
+        def plain_at(d, domain=domain, op=op, threads=threads, pts=pts):
+            return lambda: ptk.exp_point_chain_plain(*pts, domain, op, d,
+                                                     threads)
+
+        out.add("exp_point_chain", f"{domain} {op}, {threads} threads a "
+                f"block, {lanes} lanes, depth {depth}", run_at(depth),
+                [(run_at(d8), plain_at(d8))],
+                lambda o, domain=domain, op=op, pts=pts:
+                ptk.check_lanes(pts, o, domain, op, depth),
+                "point_chain_kernel", 6 * 48 * lanes,
+                products * macs * lanes, depth=depth,
+                lat_ms=path * lat["lazy13" if domain == "lazy" else
+                                  "mont12"] / 1e6,
+                critical_path_products=path, products_a_lane=products)
+        if threads == 64:
+            words[(domain, op)] = run_at(depth)()
+    for op in ptk.OPS:
+        check(same(words[("lazy", op)], words[("ladder", op)]),
+              f"phase 17: the ladder's {op} words differ from the lazy ones")
+
+    # X7's transp, X8's serial8, X9's serial1 (mont12, sqr12)
+    stack = exp_bisect.word_major(bisect)
+    x9 = seed9[0]
+    x3 = seed3[0]
+    for body, product in ek.TUPLE_CASES_X789:
+        x = {"transp": stack, "serial8": x3}.get(body, x9)
+        steps = ek.SERIAL_STEPS.get(body, 7)
+        path = steps if body != "transp" else 3
+        macs = {"lazy13": product_macs(13), "mont12": product_macs(12) + 12,
+                "sqr12": 66 + 12 + 12 * 12 + 12 + 12}[product]
+
+        def run_at(d, x=x, body=body, product=product):
+            return lambda: ek.exp_tuple_chain(x, body, product, d)
+
+        def plain_at(d, x=x, body=body, product=product):
+            return lambda: ek.exp_tuple_chain_plain(x, body, product, d)
+
+        if body == "transp":
+            def ok(o, pts=bisect):
+                few = ptk.CHECK_LANES
+                ins = list(zip(*(word_ints(c, few) for c in pts)))
+                return word_ints(o.T, few) == [
+                    exp_bisect.body_int("transp", pt, depth)[0]
+                    for pt in ins]
+        else:
+            def ok(o, x=x, body=body, product=product):
+                return exp_ab_mul.check_lanes(x, o, product, depth, body,
+                                              ptk.CHECK_LANES)
+
+        out.add("exp_tuple_chain", f"{body} {product}, {lanes} lanes, "
+                f"depth {depth}", run_at(depth),
+                [(run_at(d8), plain_at(d8)),
+                 (run_at(depth), plain_at(depth))], ok,
+                "tuple_chain_kernel", 2 * 48 * lanes
+                * (3 if body == "transp" else 1),
+                steps * macs * lanes * depth, depth=depth,
+                lat_ms=depth * path * lat["lazy13" if product == "lazy13"
+                                          else "mont12"] / 1e6)
+
+    # X7's conv and ctx, X10's mulref
+    for body in ek.EXT_BODIES:
+        pts = bisect if body in ("conv", "ctx") else seed9
+        needed = {"conv": 7, "ctx": 7, "indep8": 3, "dblshape": 8}[body]
+        path = {"conv": 3, "ctx": 3, "indep8": 1, "dblshape": 5}[body]
+        ends = 0 if body == "ctx" else 2
+
+        def run_at(d, pts=pts, body=body):
+            return lambda: ek.exp_ext_body(*pts, body, d)
+
+        def plain_at(d, pts=pts, body=body):
+            return lambda: ek.exp_ext_body_plain(*pts, body, d)
+
+        out.add("exp_ext_body", f"{body}, {lanes} lanes, depth {depth}",
+                run_at(depth), [(run_at(d8), plain_at(d8)),
+                                (run_at(depth), plain_at(depth))],
+                lambda o, pts=pts, body=body:
+                exp_bisect.check_body_lanes(pts, o, body, depth),
+                "ext_body_kernel", 6 * 48 * lanes,
+                (needed * depth + 3 * ends) * product_macs(13) * lanes,
+                depth=depth,
+                lat_ms=(depth * path + ends) * lat["lazy13"] / 1e6)
+
+    # X8: SM-ns a lane-op by threads a block, each domain
+    sweep = {}
+    for line in runs["exp_width"]:
+        if line["case"] == "projdbl":
+            sweep.setdefault(line["domain"], {})[line["threads"]] = \
+                line["sm_ns_a_lane_op"]
+    log(f"[{card}] phase 17, X8's sweep, SM-ns a lane-double by threads a "
+        f"block: " + "; ".join(
+            f"{dom} " + ", ".join(f"{t} {v:.1f} ({v / by[64]:.3f}x)"
+                                  for t, v in by.items())
+            for dom, by in sweep.items()))
+    calib = {line["layer"]: line["ratio_to_mont24"]
+             for line in runs["exp_calib"]}
+    log(f"[{card}] phase 17, X3's ratios to mont24: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in calib.items()))
+    phase_s = time.time() - t_phase
+    log(f"[{card}] phase 17: {phase_s:.1f} s")
+    return ({"entry_points": runs, "path_s": path_s, "phase_s": phase_s,
+             "cases": cases, "ptxas": regs, "sass": sass,
+             "header_moves": moved, "width_sweep_sm_ns": sweep,
+             "calib_ratios": calib, "shapes": out.detail},
+            list(out.rows.values()), launches)
+
+
+def merge_rows(kernels: list, rows: list) -> None:
+    """A phase's rows into `kernels`: a kernel with a row there already
+    takes the phase's shapes into its row's; a new kernel adds its row."""
+    for row in rows:
+        first = next((k for k in kernels if k["name"] == row["name"]), None)
+        if first is None:
+            kernels.append(row)
+            continue
+        head = {k: row[k] for k in ("shape", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "latency_ms")}
+        first.setdefault("shapes", []).extend([head] + row["shapes"])
+        first["max_abs_err"] = max(first["max_abs_err"], row["max_abs_err"])
 
 
 def add_path(kernels: list, path_launches: dict, path: str,
@@ -3621,6 +3937,11 @@ def main() -> int:
         dev, card, ptxas, exp_res)
     add_path(kernels, path_launches, "exp_chain", chain_launches)
     kernels.extend(chain_rows)
+    # ---- 17. the point-op experiments, last ----
+    point_res, point_rows, point_launches = exp_point_phase(
+        dev, card, ptxas, exp_res, chain_res)
+    add_path(kernels, path_launches, "exp_point", point_launches)
+    merge_rows(kernels, point_rows)
 
     log(f"clocks after timing: {clocks()}")
     result = {"card": card, "kind": kind, "fk20_ms": fk20_ms,
@@ -3660,7 +3981,7 @@ def main() -> int:
               "fft_g1_generic": fft_generic_res,
               "persistence": persist_res, "examples": examples_res,
               "sharded": sharded_res, "exp_field": exp_res,
-              "exp_chain": chain_res}
+              "exp_chain": chain_res, "exp_point": point_res}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kernels}))

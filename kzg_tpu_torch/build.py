@@ -27,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "..", "build", "kernels")
 SOURCES = ("fr_kernels", "fr_route_kernels", "g1_kernels", "g1_fft_kernels",
            "g1_table_kernels", "g1_point_kernels", "g1_sum_kernels",
-           "pairing_kernels", "exp_field_kernels")
+           "pairing_kernels", "exp_field_kernels", "exp_point_kernels")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -81,6 +81,10 @@ SIGNATURES = {
         "kzg_exp_op_chain": (_I, _P, _P, _I, _I, _P),
         "kzg_exp_tuple_chain": (_I, _I, _P, _P, _I, _I, _P),
         "kzg_exp_ext_chain": (_I, _I) + (_P,) * 6 + (_I, _I, _P),
+        "kzg_exp_ext_body": (_I,) + (_P,) * 7 + (_I, _I, _P),
+    },
+    "exp_point_kernels": {
+        "kzg_exp_point_chain": (_I, _I, _I) + (_P,) * 6 + (_I, _I, _P),
     },
 }
 ROOT = os.path.dirname(os.path.dirname(CSRC))

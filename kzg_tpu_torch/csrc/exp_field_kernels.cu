@@ -36,11 +36,18 @@
 // tuple3 (the carry in registers), single (the carry written to one
 // 36-word volatile slice of shared memory and read back each iteration,
 // the counterpart of the TPU's one (72, W) array) and serial (x <- M(x, x)
-// seven times). Its products M:
+// seven times); and for X7, X8 and X9 (scripts/exp_bisect.py::variant,
+// exp_width.py::serial8, exp_pointops.py::mul_chain and ::sqr_chain):
+// transp (tuple3 from three different coordinates, read from a word-major
+// stack as the TPU's pts.x.T), serial8 (x <- M(x, x) eight times, 256
+// threads a block as the script's block) and serial1 (once). Its
+// products M:
 //   mont12: field.cuh's mul<12>, canonical (mont_mul_tile at 24 limbs);
 //   lazy12, lazy13, lazy16: REDC over R = 2^384, 2^416, 2^512 with no
 //      final conditional subtraction (lazy_mul_tile at 24, 25, 32 rows;
-//      one headroom word stands where the TPU had one 16-bit limb).
+//      one headroom word stands where the TPU had one 16-bit limb);
+//   sqr12: REDC(x*x) by a symmetric product (sym_sqr: each off-diagonal
+//      word product once, doubled), canonical: mul<12>(x, x)'s words.
 // Schedules: every product runs field.cuh's split-accumulator rows
 // (mul_row: CIOS, the even and odd words' partial products on two
 // independent carry chains). lazy12 is mul<12> without its cond_sub, so
@@ -84,7 +91,16 @@
 // sum is any 13-word value: the product that takes it stays below
 // 2^416 * 2p, its output below 3p. Every case but raw12 is exact field
 // arithmetic, and from_ext's canonical words are the same field elements
-// whatever R_ext is.
+// whatever R_ext is. The 13-word domain lives in lazy.cuh.
+// exp_ext_body replaces the rest of scripts/exp_bisect.py::variant (X7)
+// and scripts/exp_lazyops.py::mulref (X10): seven, the 7-product body in
+// the 13-word domain, with to_ext and from_ext (conv) or on the
+// zero-padded words, stored as their low 12 words, with the modulus and
+// n0 read from a device-memory context into registers where every other
+// case has immediates, and K m built by six lazy doublings as the TPU's
+// _lazy_ctx (ctx); indep8, 8 products of x, y, z of which the carry reads
+// three (the script's five others feed nothing), and dblshape, 8 products
+// in proj_double's dependency shape.
 //
 // Exactness of the tensor-core passes: digits are bytes, so each u8 x u8
 // product is below 2^16, and a column of the Toeplitz product sums at most
@@ -98,27 +114,21 @@
 // also multiply Fp's padding digits and each block's zero triangle); at
 // 2048 lanes (64 warps on 132 SMs) a chain is bound by the latency of one
 // thread's (one warp's) dependent products instead: X4 and X5's tuple3 by
-// 3 dependent products of its 7 an iteration, serial by 7 of 7, X6 and
-// X11's body by 4 of 8 plus the extras' chain on c. Design: the simplest
-// form of each variant, one thread a lane; blocks of 2 warps spread the
-// lanes over the SMs.
+// 3 dependent products of its 7 an iteration (X7's transp, conv and ctx
+// too), serial by 7 of 7 (serial8 8, serial1 1), X6 and X11's body by 4
+// of 8 plus the extras' chain on c, X10's indep8 by 1 and dblshape by 5
+// of 8. Design: the simplest form of each variant, one thread a lane;
+// blocks of 2 warps spread the lanes over the SMs.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "lazy.cuh"
 
 namespace kzg {
 
-// Fp's modulus padded with zero words to 14 and 16 words, for the lazy
-// products' rows (mul_row reads Field<N>::m and n0). n0 = -m^-1 mod 2^32
-// depends on the lowest word alone, so it is Fp's at every width.
-template <>
-struct Field<14> {
-  static constexpr uint32_t n0 = Field<12>::n0;
-  __device__ __forceinline__ static uint32_t m(int i) {
-    return i < 12 ? Field<12>::m(i) : 0u;
-  }
-};
-
+// Fp's modulus padded with zero words to 16 words (14: lazy.cuh), for the
+// lazy products' rows (mul_row reads Field<N>::m and n0). n0 = -m^-1 mod
+// 2^32 depends on the lowest word alone, so it is Fp's at every width.
 template <>
 struct Field<16> {
   static constexpr uint32_t n0 = Field<12>::n0;
@@ -698,49 +708,91 @@ extern "C" int kzg_exp_op_chain(int op, void* out, const void* a, int n,
   return (int)cudaGetLastError();
 }
 
-// ---- the product bodies (X4, X5, X6, X11) ----
+// ---- the product bodies (X4, X5, X6, X7, X8, X9, X10, X11) ----
 
 namespace {
 
-// r = lo + hi / 2^32 (hi[0] = 0): the last row's pending shift of a split
-// accumulator; the carry out of word NA-1 is dropped (the value fits).
-template <int NA>
-__device__ __forceinline__ void halves(uint32_t r[NA], const uint32_t lo[NA],
-                                       const uint32_t hi[NA]) {
-  r[0] = ptx::add_cc(lo[0], hi[1]);
-#pragma unroll
-  for (int k = 1; k < NA - 1; k++) r[k] = ptx::addc_cc(lo[k], hi[k + 1]);
-  r[NA - 1] = ptx::addc(lo[NA - 1], 0);
-}
+using kzg::Ext;
+using kzg::ext_mul;
+using kzg::ext_op;
+using kzg::from_ext;
+using kzg::kExtNA;
+using kzg::kExtWords;
+using kzg::kLazyAdd;
+using kzg::kLazySub;
+using kzg::kRawAdd;
+using kzg::lazy_mul;
+using kzg::to_ext;
 
-// r = REDC(a*b) over R = 2^(32 ROWS) with no final conditional
-// subtraction, mod R: ROWS of field.cuh's split-accumulator rows on NA
-// words (NA even, NA >= ROWS; a and the modulus zero-padded to NA words,
-// b's low ROWS words scanned). After an odd number of rows the halves'
-// roles are swapped. Words ROWS..NA-1 of r are set to 0. r may alias a
-// or b.
-template <int NA, int ROWS>
-__device__ __forceinline__ void lazy_mul(uint32_t r[NA], const uint32_t a[NA],
-                                         const uint32_t b[NA]) {
-  uint32_t E[NA], O[NA];
+// r = REDC(a*a) over R = 2^(32N), canonical, by a symmetric product: each
+// a_i a_j with i < j once (row i: the low halves on one carry chain, the
+// high halves on another, as wide_mul), the sum doubled on one add chain,
+// the squares a_i^2 added on one more, then N reduction rows on the 2N
+// words, t += q m 2^(32i) with q = t_i n0, each row's carry out of word
+// i+N held for the next row, then cond_sub. The off-diagonal sum is below
+// a^2 < 2^(64N), so neither the rows nor the doubling carry out; t + Q m
+// < m^2 + R m < 2 R m, so the output is below 2m and the top carry 0 or
+// 1. Its words equal mul<N>(a, a)'s: both are the canonical product.
+template <int N>
+__device__ __forceinline__ void sym_sqr(uint32_t r[N], const uint32_t a[N]) {
+  uint32_t t[2 * N];
 #pragma unroll
-  for (int i = 0; i + 1 < ROWS; i += 2) {
-    kzg::mul_row<NA>(E, O, a, b[i], i == 0);
-    kzg::mul_row<NA>(O, E, a, b[i + 1], false);
-  }
-  if constexpr (ROWS % 2 == 1) {
-    kzg::mul_row<NA>(E, O, a, b[ROWS - 1], ROWS == 1);
-    halves<NA>(r, O, E);   // E[0] = 0: t / 2^32 = O + E / 2^32
-  } else {
-    halves<NA>(r, E, O);   // O[0] = 0: t / 2^32 = E + O / 2^32
-  }
+  for (int k = 0; k < 2 * N; k++) t[k] = 0;
 #pragma unroll
-  for (int k = ROWS; k < NA; k++) r[k] = 0;
+  for (int i = 0; i < N - 1; i++) {
+    t[2 * i + 1] = ptx::mad_lo_cc(a[i], a[i + 1], t[2 * i + 1]);
+#pragma unroll
+    for (int j = i + 2; j < N; j++)
+      t[i + j] = ptx::madc_lo_cc(a[i], a[j], t[i + j]);
+    t[i + N] = ptx::addc(0, 0);   // that word was 0 before this row
+    if (i == N - 2) {
+      t[i + N] += __umulhi(a[i], a[N - 1]);   // below 2^32 - 1 + 1
+    } else {
+      t[2 * i + 2] = ptx::mad_hi_cc(a[i], a[i + 1], t[2 * i + 2]);
+#pragma unroll
+      for (int j = i + 2; j < N - 1; j++)
+        t[i + j + 1] = ptx::madc_hi_cc(a[i], a[j], t[i + j + 1]);
+      t[i + N] = ptx::madc_hi(a[i], a[N - 1], t[i + N]);
+    }
+  }
+  t[0] = ptx::add_cc(t[0], t[0]);
+#pragma unroll
+  for (int k = 1; k < 2 * N - 1; k++) t[k] = ptx::addc_cc(t[k], t[k]);
+  t[2 * N - 1] = ptx::addc(t[2 * N - 1], t[2 * N - 1]);
+  t[0] = ptx::mad_lo_cc(a[0], a[0], t[0]);
+  t[1] = ptx::madc_hi_cc(a[0], a[0], t[1]);
+#pragma unroll
+  for (int i = 1; i < N - 1; i++) {
+    t[2 * i] = ptx::madc_lo_cc(a[i], a[i], t[2 * i]);
+    t[2 * i + 1] = ptx::madc_hi_cc(a[i], a[i], t[2 * i + 1]);
+  }
+  t[2 * N - 2] = ptx::madc_lo_cc(a[N - 1], a[N - 1], t[2 * N - 2]);
+  t[2 * N - 1] = ptx::madc_hi(a[N - 1], a[N - 1], t[2 * N - 1]);
+  uint32_t carry = 0;   // the last row's carry out, pending at word i+N
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const uint32_t q = t[i] * Field<N>::n0;
+    t[i] = ptx::mad_lo_cc(q, Field<N>::m(0), t[i]);
+#pragma unroll
+    for (int j = 1; j < N; j++)
+      t[i + j] = ptx::madc_lo_cc(q, Field<N>::m(j), t[i + j]);
+    const uint32_t lo_carry = ptx::addc(0, 0);
+    t[i + 1] = ptx::mad_hi_cc(q, Field<N>::m(0), t[i + 1]);
+#pragma unroll
+    for (int j = 1; j < N; j++)
+      t[i + j + 1] = ptx::madc_hi_cc(q, Field<N>::m(j), t[i + j + 1]);
+    uint32_t c = ptx::addc(0, 0);
+    t[i + N] = ptx::add_cc(t[i + N], lo_carry);
+    c = ptx::addc(c, 0);
+    t[i + N] = ptx::add_cc(t[i + N], carry);
+    carry = ptx::addc(c, 0);
+  }
+  kzg::cond_sub<N>(r, t + N, carry);
 }
 
 // the products, by the C entry point's number, and a value's register
-// width under each
-enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16 };
+// width under each (sqr12 squares its first operand)
+enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16, kSqr12 };
 
 template <int P>
 constexpr int kWidth = P == kLazy13 ? 14 : P == kLazy16 ? 16 : 12;
@@ -755,36 +807,60 @@ __device__ __forceinline__ void product(uint32_t r[kWidth<P>],
     lazy_mul<12, 12>(r, a, b);
   else if constexpr (P == kLazy13)
     lazy_mul<14, 13>(r, a, b);
-  else
+  else if constexpr (P == kLazy16)
     lazy_mul<16, 16>(r, a, b);
+  else
+    sym_sqr<12>(r, a);
 }
 
-enum Body { kTuple3 = 0, kSingle, kSerial };
+enum Body { kTuple3 = 0, kSingle, kSerial, kSerial8, kSerial1, kTransp };
+
+// a body's block: 256 threads for serial8 (the script's block), else
+// kThreads; and the serial bodies' products a step
+template <int BODY>
+constexpr int kBodyThreads = BODY == kSerial8 ? 256 : kThreads;
+template <int BODY>
+constexpr int kSerialSteps = BODY == kSerial ? 7 : BODY == kSerial8 ? 8
+                             : BODY == kSerial1 ? 1 : 0;
 
 // In and out: (n, 12) Fp words a lane; a value is zero-padded to its
 // product's width NA and stored as its low 12 words (every value of the
-// chain is below 2p < 2^384).
+// chain is below 2p < 2^384). transp reads x, y and z from a (3, 12, n)
+// word-major stack (word k of coordinate c of lane i at (12c + k) n + i,
+// the layout of the TPU's pts.x.T) and writes f word-major, (12, n).
 template <int BODY, int PROD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBodyThreads<BODY>)
     tuple_chain_kernel(int32_t* __restrict__ out,
                        const int32_t* __restrict__ in, int n, int depth) {
   constexpr int NA = kWidth<PROD>;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kBodyThreads<BODY> + threadIdx.x;
   if (i >= n) return;
   uint32_t x[NA];
 #pragma unroll
-  for (int k = 0; k < NA; k++)
-    x[k] = k < 12 ? (uint32_t)in[(size_t)i * 12 + k] : 0;
-  if constexpr (BODY == kSerial) {
+  for (int k = 0; k < NA; k++) {
+    if constexpr (BODY == kTransp)
+      x[k] = k < 12 ? (uint32_t)in[(size_t)k * n + i] : 0;
+    else
+      x[k] = k < 12 ? (uint32_t)in[(size_t)i * 12 + k] : 0;
+  }
+  if constexpr (kSerialSteps<BODY> > 0) {
 #pragma unroll 1
     for (int d = 0; d < depth; d++) {
 #pragma unroll
-      for (int s = 0; s < 7; s++) product<PROD>(x, x, x);
+      for (int s = 0; s < kSerialSteps<BODY>; s++) product<PROD>(x, x, x);
     }
   } else {
     uint32_t y[NA], z[NA];
-    kzg::copy<NA>(y, x);
-    kzg::copy<NA>(z, x);
+    if constexpr (BODY == kTransp) {
+#pragma unroll
+      for (int k = 0; k < NA; k++) {
+        y[k] = k < 12 ? (uint32_t)in[(size_t)(12 + k) * n + i] : 0;
+        z[k] = k < 12 ? (uint32_t)in[(size_t)(24 + k) * n + i] : 0;
+      }
+    } else {
+      kzg::copy<NA>(y, x);
+      kzg::copy<NA>(z, x);
+    }
     // single: the thread's 3 * NA words, one every kThreads words
     __shared__ uint32_t carry[BODY == kSingle ? 3 * NA * kThreads : 1];
     volatile uint32_t* w = carry + threadIdx.x;
@@ -815,100 +891,12 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  kzg::store<12>(out + (size_t)i * 12, x);
-}
-
-// the 13-word lazy domain (R_ext = 2^416) of exp_ext_chain, its values in
-// 14-word registers (word 13 is 0)
-constexpr int kExtWords = 13;
-constexpr int kExtNA = 14;
-
-struct Ext {
-  // C_IN = 2^(2*416-384) mod p
-  __device__ __forceinline__ static uint32_t c_in(int i) {
-    constexpr uint32_t W[13] = {0x7dba9366u, 0x42b7fde3u, 0x27525bc3u,
-                                0x7784894eu, 0xc1f5b1e9u, 0xb2b91b9du,
-                                0xfcafb872u, 0x206f497du, 0x89a9b0bbu,
-                                0x594137ccu, 0x20d7e399u, 0x0411cd9du,
-                                0x00000000u};
-    return W[i];
-  }
-  // C_OUT = 2^384 mod p
-  __device__ __forceinline__ static uint32_t c_out(int i) {
-    constexpr uint32_t W[13] = {0x0002fffdu, 0x76090000u, 0xc40c0002u,
-                                0xebf4000bu, 0x53c758bau, 0x5f489857u,
-                                0x70525745u, 0x77ce5853u, 0xa256ec6du,
-                                0x5c071a97u, 0xfa80e493u, 0x15f65ec3u,
-                                0x00000000u};
-    return W[i];
-  }
-  // K m with K = 64, the lazy sub's offset
-  __device__ __forceinline__ static uint32_t km(int i) {
-    constexpr uint32_t W[13] = {0xffeaaac0u, 0x7fbfffffu, 0x54ffffeeu,
-                                0xaaffffacu, 0xac3d8907u, 0xcc34a83du,
-                                0xe144afd9u, 0x1dd2e13cu, 0xd2eb35d9u,
-                                0xc6e9ed90u, 0x5ff9a692u, 0x80447a8eu,
-                                0x00000006u};
-    return W[i];
-  }
-};
-
-__device__ __forceinline__ void ext_mul(uint32_t r[kExtNA],
-                                        const uint32_t a[kExtNA],
-                                        const uint32_t b[kExtNA]) {
-  lazy_mul<kExtNA, kExtWords>(r, a, b);
-}
-
-enum ExtOp { kLazyAdd = 0, kLazySub, kRawAdd };
-
-// r = E(a, b) on 13 words, mod 2^416; r may alias a or b
-template <int OP>
-__device__ __forceinline__ void ext_op(uint32_t r[kExtNA],
-                                       const uint32_t a[kExtNA],
-                                       const uint32_t b[kExtNA]) {
-  constexpr int W = kExtWords;
-  if constexpr (OP == kLazyAdd) {
-    r[0] = ptx::add_cc(a[0], b[0]);
+  if constexpr (BODY == kTransp) {
 #pragma unroll
-    for (int k = 1; k < W - 1; k++) r[k] = ptx::addc_cc(a[k], b[k]);
-    r[W - 1] = ptx::addc(a[W - 1], b[W - 1]);
-  } else if constexpr (OP == kLazySub) {
-    uint32_t t[W];   // K m - b
-    t[0] = ptx::sub_cc(Ext::km(0), b[0]);
-#pragma unroll
-    for (int k = 1; k < W - 1; k++) t[k] = ptx::subc_cc(Ext::km(k), b[k]);
-    t[W - 1] = ptx::subc(Ext::km(W - 1), b[W - 1]);
-    r[0] = ptx::add_cc(a[0], t[0]);
-#pragma unroll
-    for (int k = 1; k < W - 1; k++) r[k] = ptx::addc_cc(a[k], t[k]);
-    r[W - 1] = ptx::addc(a[W - 1], t[W - 1]);
+    for (int k = 0; k < 12; k++) out[(size_t)k * n + i] = (int32_t)x[k];
   } else {
-#pragma unroll
-    for (int k = 0; k < W; k++) r[k] = a[k] + b[k];
+    kzg::store<12>(out + (size_t)i * 12, x);
   }
-}
-
-// (n, 12) canonical Montgomery words (R = 2^384) -> the lazy domain
-__device__ __forceinline__ void to_ext(uint32_t v[kExtNA],
-                                       const int32_t* __restrict__ p) {
-  uint32_t c[kExtNA];
-#pragma unroll
-  for (int k = 0; k < kExtNA; k++) {
-    v[k] = k < 12 ? (uint32_t)p[k] : 0;
-    c[k] = k < kExtWords ? Ext::c_in(k) : 0;
-  }
-  ext_mul(v, v, c);
-}
-
-// the lazy domain -> canonical words: REDC by C_OUT (below 2p), cond_sub
-__device__ __forceinline__ void from_ext(int32_t* __restrict__ p,
-                                         const uint32_t v[kExtNA]) {
-  uint32_t c[kExtNA], t[kExtNA], r[12];
-#pragma unroll
-  for (int k = 0; k < kExtNA; k++) c[k] = k < kExtWords ? Ext::c_out(k) : 0;
-  ext_mul(t, v, c);
-  kzg::cond_sub<12>(r, t, t[12]);
-  kzg::store<12>(p, r);
 }
 
 template <int OP, int NEXTRA>
@@ -950,9 +938,174 @@ __global__ void __launch_bounds__(kThreads)
   from_ext(oz + o, z);
 }
 
+// ---- X7's ctx: REDC over 2^416 on a modulus held in registers ----
+
+// field.cuh's cmad_mod and mul_row with the modulus words m[] and n0 read
+// from registers in place of Field<N>::m(i) and n0 immediates
+template <int N>
+__device__ __forceinline__ void cmad_mod_reg(uint32_t acc[N],
+                                             const uint32_t m[N], int off,
+                                             uint32_t q) {
+  acc[0] = ptx::mad_lo_cc(m[off], q, acc[0]);
+  acc[1] = ptx::madc_hi_cc(m[off], q, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = ptx::madc_lo_cc(m[j + off], q, acc[j]);
+    acc[j + 1] = ptx::madc_hi_cc(m[j + off], q, acc[j + 1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void mul_row_reg(uint32_t P[N], uint32_t Q[N],
+                                            const uint32_t a[N], uint32_t x,
+                                            bool first, const uint32_t m[N],
+                                            uint32_t n0) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      P[j] = a[j] * x;
+      P[j + 1] = __umulhi(a[j], x);
+      Q[j] = a[j + 1] * x;
+      Q[j + 1] = __umulhi(a[j + 1], x);
+    }
+  } else {
+    P[0] = ptx::add_cc(P[0], Q[1]);
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+      Q[j] = ptx::madc_lo_cc(a[j + 1], x, Q[j + 2]);
+      Q[j + 1] = ptx::madc_hi_cc(a[j + 1], x, Q[j + 3]);
+    }
+    Q[N - 2] = ptx::madc_lo_cc(a[N - 1], x, 0);
+    Q[N - 1] = ptx::madc_hi(a[N - 1], x, 0);
+    kzg::cmad<N>(P, a, 0, x);
+    Q[N - 1] = ptx::addc(Q[N - 1], 0);
+  }
+  const uint32_t q = P[0] * n0;
+  cmad_mod_reg<N>(Q, m, 1, q);
+  cmad_mod_reg<N>(P, m, 0, q);
+  Q[N - 1] = ptx::addc(Q[N - 1], 0);
+}
+
+// ext_mul (lazy_mul<14, 13>) on the modulus in registers: the same words
+__device__ __forceinline__ void ext_mul_reg(uint32_t r[kExtNA],
+                                            const uint32_t a[kExtNA],
+                                            const uint32_t b[kExtNA],
+                                            const uint32_t m[kExtNA],
+                                            uint32_t n0) {
+  uint32_t E[kExtNA], O[kExtNA];
+#pragma unroll
+  for (int i = 0; i + 1 < kExtWords; i += 2) {
+    mul_row_reg<kExtNA>(E, O, a, b[i], i == 0, m, n0);
+    mul_row_reg<kExtNA>(O, E, a, b[i + 1], false, m, n0);
+  }
+  mul_row_reg<kExtNA>(E, O, a, b[kExtWords - 1], false, m, n0);
+  kzg::halves<kExtNA>(r, O, E);
+  r[kExtWords] = 0;
+}
+
+// the lazy-domain bodies of X7 and X10: seven (X7's 7-product body, with
+// to_ext / from_ext: conv; on the zero-padded words, stored as their low
+// 12 words, the modulus from `ctx`: ctx), indep8 and dblshape (X10's raw
+// product chains: 8 products of x, y, z, of which the carry reads three,
+// and 8 in proj_double's dependency shape)
+enum ExtBody { kSevenConv = 0, kSevenCtx, kIndep8, kDblShape };
+
+template <int BODY>
+__global__ void __launch_bounds__(kThreads)
+    ext_body_kernel(int32_t* __restrict__ ox, int32_t* __restrict__ oy,
+                    int32_t* __restrict__ oz, const int32_t* __restrict__ px,
+                    const int32_t* __restrict__ py,
+                    const int32_t* __restrict__ pz,
+                    const int32_t* __restrict__ ctx, int n, int depth) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t o = (size_t)i * 12;
+  uint32_t x[kExtNA], y[kExtNA], z[kExtNA];
+  if constexpr (BODY == kSevenCtx) {
+    // the kernel context: the padded modulus and n0 from device memory
+    // into registers, and K m by six lazy doublings, as _lazy_ctx builds
+    // it (no op of this body reads it)
+    uint32_t m[kExtNA], km[kExtNA];
+#pragma unroll
+    for (int k = 0; k < kExtNA; k++) m[k] = km[k] = (uint32_t)ctx[k];
+    const uint32_t n0 = (uint32_t)ctx[kExtNA];
+#pragma unroll
+    for (int s = 0; s < 6; s++) ext_op<kLazyAdd>(km, km, km);
+#pragma unroll
+    for (int k = 0; k < kExtNA; k++) {
+      x[k] = k < 12 ? (uint32_t)px[o + k] : 0;
+      y[k] = k < 12 ? (uint32_t)py[o + k] : 0;
+      z[k] = k < 12 ? (uint32_t)pz[o + k] : 0;
+    }
+#pragma unroll 1
+    for (int d = 0; d < depth; d++) {
+      uint32_t a[kExtNA], b[kExtNA], c[kExtNA], dd[kExtNA], e[kExtNA];
+      ext_mul_reg(a, x, y, m, n0);
+      ext_mul_reg(b, y, z, m, n0);
+      ext_mul_reg(c, z, x, m, n0);
+      ext_mul_reg(dd, a, b, m, n0);
+      ext_mul_reg(e, b, c, m, n0);
+      ext_mul_reg(x, dd, e, m, n0);   // f
+      ext_mul_reg(y, e, a, m, n0);    // g
+      kzg::copy<kExtNA>(z, c);
+    }
+    kzg::store<12>(ox + o, x);
+    kzg::store<12>(oy + o, y);
+    kzg::store<12>(oz + o, z);
+  } else {
+    to_ext(x, px + o);
+    to_ext(y, py + o);
+    to_ext(z, pz + o);
+#pragma unroll 1
+    for (int d = 0; d < depth; d++) {
+      if constexpr (BODY == kSevenConv) {
+        uint32_t a[kExtNA], b[kExtNA], c[kExtNA], dd[kExtNA], e[kExtNA];
+        ext_mul(a, x, y);
+        ext_mul(b, y, z);
+        ext_mul(c, z, x);
+        ext_mul(dd, a, b);
+        ext_mul(e, b, c);
+        ext_mul(x, dd, e);   // f
+        ext_mul(y, e, a);    // g
+        kzg::copy<kExtNA>(z, c);
+      } else if constexpr (BODY == kIndep8) {
+        uint32_t a[kExtNA], b[kExtNA], c[kExtNA], u[5][kExtNA];
+        ext_mul(a, x, y);
+        ext_mul(b, y, z);
+        ext_mul(c, z, x);
+        ext_mul(u[0], x, x);
+        ext_mul(u[1], y, y);
+        ext_mul(u[2], z, z);
+        ext_mul(u[3], x, z);
+        ext_mul(u[4], y, x);
+        kzg::copy<kExtNA>(x, a);
+        kzg::copy<kExtNA>(y, b);
+        kzg::copy<kExtNA>(z, c);
+      } else {
+        uint32_t t0[kExtNA], t1[kExtNA], t2[kExtNA], a[kExtNA], b[kExtNA],
+            c[kExtNA], dd[kExtNA];
+        ext_mul(t0, y, y);
+        ext_mul(t1, y, z);
+        ext_mul(t2, z, z);
+        ext_mul(a, t2, t0);
+        ext_mul(b, t1, t2);
+        ext_mul(c, a, b);
+        ext_mul(dd, c, t0);
+        ext_mul(z, dd, x);
+        kzg::copy<kExtNA>(x, c);
+        kzg::copy<kExtNA>(y, dd);
+      }
+    }
+    from_ext(ox + o, x);
+    from_ext(oy + o, y);
+    from_ext(oz + o, z);
+  }
+}
+
 template <int BODY, int PROD>
 void launch_tuple(void* out, const void* a, int n, int depth, cudaStream_t s) {
-  tuple_chain_kernel<BODY, PROD><<<blocks(n), kThreads, 0, s>>>(
+  constexpr int T = kBodyThreads<BODY>;
+  tuple_chain_kernel<BODY, PROD><<<(n + T - 1) / T, T, 0, s>>>(
       (int32_t*)out, (const int32_t*)a, n, depth);
 }
 
@@ -963,42 +1116,65 @@ void launch_ext(void** o, const void** p, int n, int depth, cudaStream_t s) {
       (const int32_t*)p[1], (const int32_t*)p[2], n, depth);
 }
 
+template <int BODY>
+void launch_ext_body(void** o, const void** p, const void* ctx, int n,
+                     int depth, cudaStream_t s) {
+  ext_body_kernel<BODY><<<blocks(n), kThreads, 0, s>>>(
+      (int32_t*)o[0], (int32_t*)o[1], (int32_t*)o[2], (const int32_t*)p[0],
+      (const int32_t*)p[1], (const int32_t*)p[2], (const int32_t*)ctx, n,
+      depth);
+}
+
 }  // namespace
 
-// body 0, 1, 2 = tuple3, single, serial; product 0-3 = mont12, lazy12,
-// lazy13, lazy16 (single: mont12 only)
+// body 0-5 = tuple3, single, serial, serial8, serial1, transp; product
+// 0-4 = mont12, lazy12, lazy13, lazy16, sqr12 (single, serial8: mont12
+// only; serial1: mont12, sqr12; transp: lazy13 only, `a` a (3, 12, n)
+// word-major stack and `out` (12, n))
 extern "C" int kzg_exp_tuple_chain(int body, int product, void* out,
                                    const void* a, int n, int depth,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || depth < 0) return (int)cudaErrorInvalidValue;
-  switch (body * 4 + product) {
-    case kTuple3 * 4 + kMont12:
+  switch (body * 8 + product) {
+    case kTuple3 * 8 + kMont12:
       launch_tuple<kTuple3, kMont12>(out, a, n, depth, s);
       break;
-    case kTuple3 * 4 + kLazy12:
+    case kTuple3 * 8 + kLazy12:
       launch_tuple<kTuple3, kLazy12>(out, a, n, depth, s);
       break;
-    case kTuple3 * 4 + kLazy13:
+    case kTuple3 * 8 + kLazy13:
       launch_tuple<kTuple3, kLazy13>(out, a, n, depth, s);
       break;
-    case kTuple3 * 4 + kLazy16:
+    case kTuple3 * 8 + kLazy16:
       launch_tuple<kTuple3, kLazy16>(out, a, n, depth, s);
       break;
-    case kSingle * 4 + kMont12:
+    case kSingle * 8 + kMont12:
       launch_tuple<kSingle, kMont12>(out, a, n, depth, s);
       break;
-    case kSerial * 4 + kMont12:
+    case kSerial * 8 + kMont12:
       launch_tuple<kSerial, kMont12>(out, a, n, depth, s);
       break;
-    case kSerial * 4 + kLazy12:
+    case kSerial * 8 + kLazy12:
       launch_tuple<kSerial, kLazy12>(out, a, n, depth, s);
       break;
-    case kSerial * 4 + kLazy13:
+    case kSerial * 8 + kLazy13:
       launch_tuple<kSerial, kLazy13>(out, a, n, depth, s);
       break;
-    case kSerial * 4 + kLazy16:
+    case kSerial * 8 + kLazy16:
       launch_tuple<kSerial, kLazy16>(out, a, n, depth, s);
+      break;
+    case kSerial8 * 8 + kMont12:
+      launch_tuple<kSerial8, kMont12>(out, a, n, depth, s);
+      break;
+    case kSerial1 * 8 + kMont12:
+      launch_tuple<kSerial1, kMont12>(out, a, n, depth, s);
+      break;
+    case kSerial1 * 8 + kSqr12:
+      launch_tuple<kSerial1, kSqr12>(out, a, n, depth, s);
+      break;
+    case kTransp * 8 + kLazy13:
+      launch_tuple<kTransp, kLazy13>(out, a, n, depth, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -1030,5 +1206,35 @@ extern "C" int kzg_exp_ext_chain(int op, int nextra, void* ox, void* oy,
     launch_ext<kRawAdd, 12>(o, p, n, depth, s);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// body 0-3 = seven with to_ext / from_ext (conv), seven on the padded
+// words with the modulus from ctx (ctx: 14 modulus words, then n0), indep8,
+// dblshape
+extern "C" int kzg_exp_ext_body(int body, void* ox, void* oy, void* oz,
+                                const void* px, const void* py,
+                                const void* pz, const void* ctx, int n,
+                                int depth, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || depth < 0) return (int)cudaErrorInvalidValue;
+  void* o[3] = {ox, oy, oz};
+  const void* p[3] = {px, py, pz};
+  switch (body) {
+    case kSevenConv:
+      launch_ext_body<kSevenConv>(o, p, ctx, n, depth, s);
+      break;
+    case kSevenCtx:
+      launch_ext_body<kSevenCtx>(o, p, ctx, n, depth, s);
+      break;
+    case kIndep8:
+      launch_ext_body<kIndep8>(o, p, ctx, n, depth, s);
+      break;
+    case kDblShape:
+      launch_ext_body<kDblShape>(o, p, ctx, n, depth, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

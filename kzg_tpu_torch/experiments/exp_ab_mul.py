@@ -59,19 +59,20 @@ def product_int(product: str, a: int, b: int) -> int:
     """One product M(a, b) on Python ints, as the kernel computes it."""
     n = ek.PRODUCT_WORDS[product]
     r = ek.redc_int(a * b, n)
-    if product == "mont12":
+    if product in ("mont12", "sqr12"):
         r = r - FP.modulus if r >= FP.modulus else r
     return r
 
 
 def body_int(product: str, x: int, depth: int, body: str = "tuple3") -> int:
     """The kernel's result for one lane on Python ints: `depth`
-    iterations from x = y = z = the input, f stored as 12 words."""
+    iterations from x = y = z = the input (or of a serial body), f stored
+    as 12 words."""
     def M(a, b):
         return product_int(product, a, b)
 
-    if body == "serial":
-        for _ in range(PRODUCTS_AN_ITERATION * depth):
+    if body in ek.SERIAL_STEPS:
+        for _ in range(ek.SERIAL_STEPS[body] * depth):
             x = M(x, x)
     else:
         y = z = x

@@ -85,21 +85,32 @@ def jacobian_multiple(k: int) -> tuple:
     return x, y, z
 
 
+def script_rng(seed: int = SEED, skip: int = 0):
+    """numpy's generator as a script leaves it before it draws its points:
+    seeded, and `skip` 40-byte values drawn first (scripts/exp_calib.py
+    and exp_bisect.py draw 64 for their product chains)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(skip):
+        rng.bytes(40)
+    return rng
+
+
 @functools.lru_cache(maxsize=None)
-def point_ints(lanes: int) -> tuple:
-    """The first `lanes` of the script's 2048 points (scripts/exp_addcost.py
-    :48-53), k G with k = rng.integers(1, 2^60, 2048)[i], as Jacobian
-    (X, Y, Z) ints of x, y and z."""
-    rng = np.random.default_rng(SEED)
+def point_ints(lanes: int, seed: int = SEED, skip: int = 0) -> tuple:
+    """The first `lanes` of a script's 2048 points (scripts/exp_addcost.py
+    :48-53), k G with k = rng.integers(1, 2^60, 2048)[i] from
+    script_rng(seed, skip), as Jacobian (X, Y, Z) ints of x, y and z."""
+    rng = script_rng(seed, skip)
     ks = [int(k) for k in rng.integers(1, 2**60, LANES)]
     pts = [jacobian_multiple(ks[i % LANES]) for i in range(lanes)]
     return tuple(tuple(pt[c] for pt in pts) for c in range(3))
 
 
-def inputs(lanes: int, device) -> tuple:
+def inputs(lanes: int, device, seed: int = SEED, skip: int = 0) -> tuple:
     """(x, y, z): the points' coordinates as (lanes, 12) Montgomery
     words."""
-    return tuple(FP.encode(list(c), device) for c in point_ints(lanes))
+    return tuple(FP.encode(list(c), device)
+                 for c in point_ints(lanes, seed, skip))
 
 
 def extra_int(kind: str, a: int, b: int) -> int:

@@ -17,6 +17,14 @@ with its plain PyTorch version, and their host constants.
 - `exp_ext_chain`: the 8-product body in the 13-word lazy domain on three
   point coordinates, with 0-12 extra ops on c (EXT_CASES); replaces
   scripts/exp_truth.py::build and scripts/exp_addcost.py::variant.
+- `exp_ext_body`: the 7-product body (EXT_BODIES: with to_ext and from_ext,
+  "conv", or on the padded words with the modulus from a device-memory
+  context, "ctx") and two raw product chains ("indep8", "dblshape") in the
+  13-word lazy domain; replaces the rest of scripts/exp_bisect.py::variant
+  and scripts/exp_lazyops.py::mulref. exp_tuple_chain's bodies transp,
+  serial8 and serial1 and its product sqr12 (TUPLE_CASES_X789) replace
+  exp_bisect.py's transp, exp_width.py::serial8 and
+  exp_pointops.py::mul_chain and ::sqr_chain.
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises. Each launch adds one to the
@@ -45,7 +53,7 @@ from ..field.kernels import check_words, stream_of
 from ..field.limbs import LIMB_BITS, LIMB_MASK, FieldSpec
 
 LAUNCHES = {"exp_mont_chain": 0, "exp_tc_mont_mul": 0, "exp_op_chain": 0,
-            "exp_tuple_chain": 0, "exp_ext_chain": 0}
+            "exp_tuple_chain": 0, "exp_ext_chain": 0, "exp_ext_body": 0}
 # launches by case: "exp_mont_chain:Fp:C", "exp_tc_mont_mul:hybrid",
 # "exp_tuple_chain:tuple3:lazy13", "exp_ext_chain:subs12", ...
 CASES: collections.Counter = collections.Counter()
@@ -60,11 +68,21 @@ SPECS = {"Fr": fr.SPEC, "Fp": fp.SPEC}
 # the 7-product body's products and bodies, in the C entry point's order,
 # and the (body, product) pairs the library holds
 PRODUCTS = ("mont12", "lazy12", "lazy13", "lazy16")
-PRODUCT_WORDS = {"mont12": 12, "lazy12": 12, "lazy13": 13, "lazy16": 16}
-BODIES = ("tuple3", "single", "serial")
+# and the symmetric square (X9), the C entry point's product 4
+PRODUCT_CODES = PRODUCTS + ("sqr12",)
+PRODUCT_WORDS = {"mont12": 12, "lazy12": 12, "lazy13": 13, "lazy16": 16,
+                 "sqr12": 12}
+BODIES = ("tuple3", "single", "serial", "serial8", "serial1", "transp")
 TUPLE_CASES = (tuple(("tuple3", p) for p in PRODUCTS)
                + (("single", "mont12"),)
                + tuple(("serial", p) for p in PRODUCTS))
+# the cases of X7 (transp: tuple3 on three coordinates read word-major),
+# X8 (eight squarings a step, 256 threads a block) and X9 (one product a
+# step, mul<12> or the symmetric square)
+TUPLE_CASES_X789 = (("transp", "lazy13"), ("serial8", "mont12"),
+                    ("serial1", "mont12"), ("serial1", "sqr12"))
+# the serial bodies' products a step
+SERIAL_STEPS = {"serial": 7, "serial8": 8, "serial1": 1}
 # the 8-product body's extra ops: the C op of each kind (fold is the lazy
 # add: on 32-bit words the carry lives inside the add.cc chain), and the
 # script's six variants (kind, extras an iteration)
@@ -74,6 +92,8 @@ EXT_CASES = (("adds", 0), ("adds", 4), ("adds", 12), ("subs", 12),
 # cases the scripts lack, for checks only: subs1 (subs12 leaves c = K m
 # from its third extra on, so all its outputs are 0)
 EXT_CHECK_CASES = (("subs", 1),)
+# exp_ext_body's bodies, in the C entry point's order
+EXT_BODIES = ("conv", "ctx", "indep8", "dblshape")
 # the lazy domain of the 8-product body: 13 words, R_ext = 2^416; to_ext
 # multiplies by C_IN (aR -> aR_ext), from_ext by C_OUT; the lazy sub
 # offsets by K m
@@ -286,21 +306,41 @@ def _lazy_consts(n_words: int, device: torch.device):
     return t(m, L), t((-pow(m, -1, r)) % r, L), t((r << 16) - m, L + 1)
 
 
+def _redc_columns(t: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(T + q p) / R mod R from T's column sums t (..., 2L - 1), each
+    below 2^38, R = 2^(32 N), L = 2N: q = -T p^-1 mod R."""
+    mod, npr, _ = _lazy_consts(n_words, t.device)
+    L = 2 * n_words
+    cols = limbs._product_cols
+    # T's column sums stand for T: their low L columns are T mod R up to
+    # multiples of R, which q does not see
+    t = torch.nn.functional.pad(t, (0, 1))
+    q = _fold(cols(t[..., :L], npr)[..., :L], 3)        # sums below 2^59
+    s = _fold(t + torch.nn.functional.pad(cols(q, mod), (0, 1)), 2)
+    return s[..., L:]
+
+
 def lazy_mul_limbs(a: torch.Tensor, b: torch.Tensor,
                    n_words: int) -> torch.Tensor:
     """REDC(a b) over R = 2^(32 N) with no final conditional subtraction:
     (T + q p) / R mod R, T = a b, q = -T p^-1 mod R, on canonical limbs
     (..., 2N), as the kernels' lazy products. T + q p < R^2 for every
     operand pair of the bodies."""
-    mod, npr, _ = _lazy_consts(n_words, a.device)
-    L = 2 * n_words
-    cols = limbs._product_cols
-    # T's column sums (below 2^37) stand for T: their low L columns are
-    # T mod R up to multiples of R, which q does not see
-    t = torch.nn.functional.pad(cols(a, b), (0, 1))
-    q = _fold(cols(t[..., :L], npr)[..., :L], 3)        # sums below 2^59
-    s = _fold(t + torch.nn.functional.pad(cols(q, mod), (0, 1)), 2)
-    return s[..., L:]
+    return _redc_columns(limbs._product_cols(a, b), n_words)
+
+
+def sym_square_columns(a: torch.Tensor) -> torch.Tensor:
+    """Column sums of a*a by the symmetric product, as sqr12 forms it:
+    each a_i a_j with i < j once, doubled, then the squares a_i^2."""
+    L = a.shape[-1]
+    upper = torch.triu(a.unsqueeze(-1) * a.unsqueeze(-2), diagonal=1)
+    cols = torch.zeros(a.shape[:-1] + (2 * L - 1,), dtype=a.dtype,
+                       device=a.device)
+    for i in range(L):
+        cols[..., i:i + L] += upper[..., i, :]
+    cols = 2 * cols
+    cols[..., 0::2] += a * a
+    return cols
 
 
 def cond_sub_limbs(v: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -316,11 +356,14 @@ def _tuple_product(product: str):
     n = PRODUCT_WORDS[product]
     if product == "mont12":
         return lambda a, b: cond_sub_limbs(lazy_mul_limbs(a, b, n), n)
+    if product == "sqr12":
+        return lambda a, b: cond_sub_limbs(
+            _redc_columns(sym_square_columns(a), n), n)
     return lambda a, b: lazy_mul_limbs(a, b, n)
 
 
 def _check_tuple_case(body: str, product: str) -> None:
-    if (body, product) not in TUPLE_CASES:
+    if (body, product) not in TUPLE_CASES + TUPLE_CASES_X789:
         raise ValueError(f"exp_tuple_chain: case {body!r}, {product!r}")
 
 
@@ -333,20 +376,25 @@ def _padded(x: torch.Tensor, n_words: int) -> torch.Tensor:
 def exp_tuple_chain_plain(x, body: str, product: str,
                           depth: int) -> torch.Tensor:
     """The 7-product body on the limb engine: the kernel's arithmetic, one
-    value a lane at its product's width, stored as its low 12 words."""
+    value a lane at its product's width, stored as its low 12 words
+    (transp: x a (3, 12, lanes) word-major stack, f out as (12, lanes))."""
     _check_tuple_case(body, product)
     M = _tuple_product(product)
-    v = _padded(x, PRODUCT_WORDS[product])
-    if body == "serial":
-        for _ in range(7 * depth):
+    n = PRODUCT_WORDS[product]
+    if body == "transp":
+        v, y, z = (_padded(c.T, n) for c in x)
+    else:
+        v = y = z = _padded(x, n)
+    if body in SERIAL_STEPS:
+        for _ in range(SERIAL_STEPS[body] * depth):
             v = M(v, v)
-    else:       # tuple3 and single compute the same words
-        y = z = v
+    else:       # tuple3, single and transp compute the same words
         for _ in range(depth):
             a, b, c = M(v, y), M(y, z), M(z, v)
             d, e = M(a, b), M(b, c)
             v, y, z = M(d, e), M(e, a), c
-    return limbs.limbs_to_words(v[..., :24])
+    out = limbs.limbs_to_words(v[..., :24])
+    return out.T.contiguous() if body == "transp" else out
 
 
 @functools.lru_cache(maxsize=None)
@@ -402,6 +450,53 @@ def exp_ext_chain_plain(x, y, z, kind: str, nextra: int, depth: int):
         x, y = M(d, e), M(e, a)
         z = M(x, y)
     return from_ext(x), from_ext(y), from_ext(z)
+
+
+def _check_ext_body(body: str) -> None:
+    if body not in EXT_BODIES:
+        raise ValueError(f"exp_ext_body: body {body!r}")
+
+
+def exp_ext_body_plain(x, y, z, body: str, depth: int) -> tuple:
+    """exp_ext_body on the limb engine (module docstring); indep8's five
+    products that feed nothing are not computed."""
+    _check_ext_body(body)
+    c_in, c_out, _ = _ext_consts(x.device)
+
+    def M(a, b):
+        return lazy_mul_limbs(a, b, EXT_WORDS)
+
+    if body == "ctx":
+        v = [_padded(c, EXT_WORDS) for c in (x, y, z)]
+    else:
+        v = [M(_padded(c, EXT_WORDS), c_in) for c in (x, y, z)]
+    for _ in range(depth):
+        x_, y_, z_ = v
+        if body in ("conv", "ctx"):
+            a, b, c = M(x_, y_), M(y_, z_), M(z_, x_)
+            d, e = M(a, b), M(b, c)
+            v = [M(d, e), M(e, a), c]
+        elif body == "indep8":
+            v = [M(x_, y_), M(y_, z_), M(z_, x_)]
+        else:
+            t0, t1, t2 = M(y_, y_), M(y_, z_), M(z_, z_)
+            c = M(M(t2, t0), M(t1, t2))
+            d = M(c, t0)
+            v = [c, d, M(d, x_)]
+    if body == "ctx":
+        return tuple(limbs.limbs_to_words(c[..., :24]) for c in v)
+    return tuple(limbs.limbs_to_words(cond_sub_limbs(
+        M(c, c_out), EXT_WORDS)[..., :24]) for c in v)
+
+
+@functools.lru_cache(maxsize=None)
+def _ext_ctx(device: torch.device) -> torch.Tensor:
+    """exp_ext_body's ctx context: the modulus in 14 words, then n0."""
+    m = FP.modulus
+    n0 = (-pow(m, -1, 1 << 32)) % (1 << 32)
+    words = [(m >> (32 * k)) & 0xFFFFFFFF for k in range(14)] + [n0]
+    return torch.tensor(np.array(words, dtype=np.uint32).view(np.int32),
+                        device=device)
 
 
 # ---- wrappers ----
@@ -492,21 +587,30 @@ def exp_op_chain(x, op: str, depth: int) -> torch.Tensor:
 def exp_tuple_chain(x, body: str, product: str, depth: int) -> torch.Tensor:
     """`depth` iterations a lane of a=M(x,y) b=M(y,z) c=M(z,x) d=M(a,b)
     e=M(b,c) f=M(d,e) g=M(e,a), carry (f, g, c), from x = y = z = the
-    input; returns f. x: (lanes, 12) Fp words, below p for mont12 and
-    below 2p for the lazy products."""
+    input, or a serial body of SERIAL_STEPS products; returns f. x:
+    (lanes, 12) Fp words, below p for mont12 and sqr12 and below 2p for
+    the lazy products; for transp a (3, 12, lanes) word-major stack of
+    three coordinates, f returned as (12, lanes)."""
     if x.device.type == "cpu":
         return exp_tuple_chain_plain(x, body, product, depth)
     _check_tuple_case(body, product)
-    n = _lanes(x, 12, "exp_tuple_chain")
+    if body == "transp":
+        if x.dtype != torch.int32 or x.dim() != 3 \
+                or tuple(x.shape[:2]) != (3, 12) or not x.is_contiguous():
+            raise ValueError("exp_tuple_chain: transp takes contiguous "
+                             "int32 (3, 12, lanes) words")
+        n = x.shape[2]
+    else:
+        n = _lanes(x, 12, "exp_tuple_chain")
     if depth < 0:
         raise ValueError("exp_tuple_chain: depth < 0")
-    out = torch.empty_like(x)
+    out = torch.empty_like(x[0] if body == "transp" else x)
     if n:
         lib = build.library("exp_field_kernels")
         LAUNCHES["exp_tuple_chain"] += 1
         CASES[f"exp_tuple_chain:{body}:{product}"] += 1
         build.check(lib.kzg_exp_tuple_chain(
-            BODIES.index(body), PRODUCTS.index(product), out.data_ptr(),
+            BODIES.index(body), PRODUCT_CODES.index(product), out.data_ptr(),
             x.data_ptr(), n, depth, stream_of(x)), "exp_tuple_chain")
     return out
 
@@ -534,6 +638,34 @@ def exp_ext_chain(x, y, z, kind: str, nextra: int, depth: int) -> tuple:
             EXT_OPS[kind], nextra, *(o.data_ptr() for o in outs),
             x.data_ptr(), y.data_ptr(), z.data_ptr(), n, depth,
             stream_of(x)), "exp_ext_chain")
+    return outs
+
+
+def exp_ext_body(x, y, z, body: str, depth: int) -> tuple:
+    """`depth` iterations a lane of one of EXT_BODIES in the 13-word lazy
+    domain on (lanes, 12) Fp Montgomery words of three coordinates; conv,
+    indep8 and dblshape take them through to_ext and from_ext, ctx takes
+    the zero-padded words and returns each value's low 12 words."""
+    if x.device.type == "cpu":
+        return exp_ext_body_plain(x, y, z, body, depth)
+    _check_ext_body(body)
+    n = _lanes(x, 12, "exp_ext_body")
+    for t in (y, z):
+        if t.shape != x.shape or t.device != x.device \
+                or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("exp_ext_body: y and z must match x")
+    if depth < 0:
+        raise ValueError("exp_ext_body: depth < 0")
+    outs = tuple(torch.empty_like(x) for _ in range(3))
+    if n:
+        ctx = _ext_ctx(x.device)
+        lib = build.library("exp_field_kernels")
+        LAUNCHES["exp_ext_body"] += 1
+        CASES[f"exp_ext_body:{body}"] += 1
+        build.check(lib.kzg_exp_ext_body(
+            EXT_BODIES.index(body), *(o.data_ptr() for o in outs),
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), ctx.data_ptr(), n,
+            depth, stream_of(x)), "exp_ext_body")
     return outs
 
 

@@ -663,6 +663,259 @@ def record_exp_chain(put):
         *pts, D)
 
 
+def record_exp_point(put):
+    """X3, X7, X8, X9 and X10 (scripts/exp_calib.py, exp_bisect.py,
+    exp_width.py, exp_pointops.py, exp_lazyops.py) at depth EXP_DEPTH on
+    64 lanes of each script's points, the port's host Jacobian multiples
+    of the generator (exp_addcost.inputs with the script's seed and the
+    40-byte values it draws first): one site a script through its
+    pl.pallas_call shape in interpret mode (exp_calib's projdbl,
+    exp_bisect's transp, exp_width's serial8, exp_pointops' mul_chain,
+    exp_lazyops' mulref chain), the other cases as the same bodies under
+    jax.jit (exp_lazyops' window step op by op). X3's and X7's product chains on the 64 values are
+    exp_chain's exp_ab_mul:mont24 and :lazy25. Two scripts no longer run
+    against kzg_tpu as written, and this writes out what they meant:
+    exp_pointops.py:116 calls _table_build_body(mod, npr, tx, ty, tz),
+    which now builds a lazy projective table from (lz, tx, ty, tz), so the
+    Jacobian [1..8]P is built here by point_add_tile, (k+1)P = kP + P; and
+    exp_lazyops.py:158 unpacks three of _lazy_ctx's four values, so lz[:3]
+    is taken. The tables are built in a loop of one traced add, as
+    _table_build_body does, and the window step's four doublings in a
+    loop of one, as _scalar_mul_fn does."""
+    from jax import lax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from kzg_tpu.field.pallas_kernels import (
+        _const_spec, lazy_mul_tile, mont_mul_tile, mont_sqr_tile)
+    from kzg_tpu_torch import convert
+    from kzg_tpu_torch.experiments import exp_addcost
+
+    pg = pallas_g1
+    spec, D, W, L, LL = fp.SPEC, EXP_DEPTH, 64, 24, pallas_g1.LL
+    U32 = jnp.uint32
+    csts = pg._cst()[:5]
+    mod_t, npr_t = pg._consts()
+    mod_c, npr_c = mod_t[:, :1], npr_t[:, :1]
+
+    def pts_of(seed, skip):
+        return [np.ascontiguousarray(convert.words_to_ref(c).T)
+                for c in exp_addcost.inputs(W, "cpu", seed, skip)]
+
+    def loop(body, init, n=D):
+        return lax.fori_loop(0, n, lambda _, p: body(p), init)
+
+    def seven(M, x, y, z):                      # exp_bisect.py:67-75
+        a, b, c = M(x, y), M(y, z), M(z, x)
+        d, e = M(a, b), M(b, c)
+        return M(d, e), M(e, a), c
+
+    def table_of(add, base):                    # pallas_g1.py:413-426
+        tbl = tuple(jnp.zeros((8,) + c.shape, c.dtype).at[0].set(c)
+                    for c in base)
+
+        def step(k, t):
+            nxt = add(tuple(c[k - 1] for c in t), base)
+            return tuple(c.at[k].set(v) for c, v in zip(t, nxt))
+
+        return lax.fori_loop(1, 8, step, tbl)
+
+    def lazy_chain(crefs, body, px, py, pz, table=False):
+        """to_ext, `D` applications of body(lz, p, tbl), from_ext: the
+        chain_kernel of exp_lazyops.py:62-85 (and exp_calib's projdbl)."""
+        lz, cin, cout, one = pg._kernel_ctx(crefs)
+        p = tuple(pg.to_ext(lz, cin, c) for c in (px, py, pz))
+        tbl = None
+        if table:                               # exp_lazyops.py:135-137
+            tbl = table_of(lambda a, b: pg.proj_add(lz, a, b),
+                           pg.jac_to_proj(lz, one, p))
+        out = loop(lambda q: body(lz, q, tbl), p)
+        return tuple(pg.from_ext(lz, cout, c) for c in out)
+
+    def lazy_double(lz, p, _):
+        return pg.proj_double(lz, p)
+
+    def lazy_add(lz, p, _):                     # exp_lazyops.py:94-95
+        return pg.proj_add(lz, p, (p[1], p[0], p[2]))
+
+    def lazy_wstep(lz, p, tbl):                 # exp_lazyops.py:99-105
+        q = loop(lambda a: pg.proj_double(lz, a), p, 4)
+        dig = jnp.full((W,), 5, dtype=jnp.int32)
+        return pg._apply_digit(lz, q, *tbl, dig)
+
+    def mulref(kind):                           # exp_lazyops.py:155-177
+        def body(lz, p, _):
+            modx, nprx, km = lz[:3]
+            x, y, z = p
+
+            def M(a, b):
+                return lazy_mul_tile(modx, nprx, a, b)
+
+            if kind == "indep":
+                outs = [M(x, y), M(y, z), M(z, x), M(x, x),
+                        M(y, y), M(z, z), M(x, z), M(y, x)]
+                return (outs[0], outs[1], outs[2])
+            t0, t1, t2 = M(y, y), M(y, z), M(z, z)
+            a, b = M(t2, t0), M(t1, t2)
+            c = M(a, b)
+            d = M(c, t0)
+            return (c, d, M(d, x))
+
+        return body
+
+    def lazy_jit(body, table=False):
+        return jax.jit(lambda *v: lazy_chain(v[:5], body, *v[5:], table))
+
+    bspec = pl.BlockSpec((L, W), lambda i: (0, i), memory_space=pltpu.VMEM)
+
+    def lazy_pallas(body):
+        """A lazy chain through exp_lazyops' chain_kernel shape."""
+        def kernel(mr, nr, cir, cor, oner, px, py, pz, ox, oy, oz):
+            ox[:], oy[:], oz[:] = lazy_chain(
+                (mr, nr, cir, cor, oner), body, px[:], py[:], pz[:])
+
+        return pl.pallas_call(
+            kernel, grid=(1,), in_specs=[_const_spec(LL)] * 5 + [bspec] * 3,
+            out_specs=(bspec,) * 3,
+            out_shape=tuple(jax.ShapeDtypeStruct((L, W), U32)
+                            for _ in range(3)), interpret=True)
+
+    def jac_chain(body, px, py, pz, table=False):
+        """`D` applications of body(p, sel) on canonical Jacobian words:
+        exp_pointops.py:56-81; the window step's table (:112-125)."""
+        p = (px, py, pz)
+        sel = None
+        if table:
+            tbl = table_of(
+                lambda a, b: pg.point_add_tile(mod_c, npr_c, a, b), p)
+            sel = tuple(c[3] for c in tbl)
+        return loop(lambda q: body(q, sel), p)
+
+    def jac_double(p, _):
+        return pg.point_double_tile(mod_c, npr_c, p)
+
+    def jac_add(p, _):
+        return pg.point_add_tile(mod_c, npr_c, p, (p[1], p[0], p[2]))
+
+    def jac_wstep(p, sel):
+        q = loop(lambda a: pg.point_double_tile(mod_c, npr_c, a), p, 4)
+        return pg.point_add_tile(mod_c, npr_c, q, sel)
+
+    def chain_pallas(step):
+        """x <- step(x) `D` times on (24, W) through the shape of
+        exp_pointops' mul_chain and exp_width's serial8."""
+        def kernel(mod_ref, npr_ref, a_ref, out_ref):
+            mod, npr = mod_ref[:, :1], npr_ref[:, :1]
+            out_ref[:] = loop(lambda x: step(mod, npr, x), a_ref[:])
+
+        return pl.pallas_call(
+            kernel, grid=(1,), in_specs=[_const_spec(L)] * 2 + [bspec],
+            out_specs=bspec, out_shape=jax.ShapeDtypeStruct((L, W), U32),
+            interpret=True)
+
+    lazy_dbl = lazy_jit(lazy_double)
+
+    # X3: exp_calib's points (seed 3 after its 64 values); projdbl
+    # through its pl.pallas_call (exp_calib.py:114-129)
+    pts = pts_of(3, 64)
+    put("exp_point:calib:projdbl", lazy_pallas(lazy_double)(
+        *csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+
+    # X7: exp_bisect's points; transp through its pl.pallas_call
+    # (exp_bisect.py:80-135): tuple3 on 25 rows with the script's
+    # zero-padded modulus and n'
+    def padded(limbs_np, rows):
+        out = np.zeros((rows, 128), np.uint32)
+        out[:24] = np.asarray(limbs_np, np.uint32)[:, None]
+        return jnp.asarray(out)
+
+    b25 = pl.BlockSpec((LL, W), lambda i: (0, i), memory_space=pltpu.VMEM)
+
+    def transp_kernel(mod_ref, npr_ref, px, py, pz, ox, oy, oz):
+        mod, npr = mod_ref[:, :1], npr_ref[:, :1]
+        ox[:], oy[:], oz[:] = loop(lambda p: seven(
+            lambda a, b: lazy_mul_tile(mod, npr, a, b), *p),
+            (px[:], py[:], pz[:]))
+
+    transp = pl.pallas_call(
+        transp_kernel, grid=(1,), in_specs=[_const_spec(LL)] * 2 + [b25] * 3,
+        out_specs=(b25,) * 3,
+        out_shape=tuple(jax.ShapeDtypeStruct((LL, W), U32)
+                        for _ in range(3)), interpret=True)
+    p25 = [jnp.pad(jnp.asarray(c), ((0, LL - L), (0, 0))) for c in pts]
+    put("exp_point:bisect:transp", transp(
+        padded(spec.mod_limbs, LL), padded(spec.nprime_limbs, LL), *p25),
+        *pts, D)
+
+    def bisect_ctx(crefs, px, py, pz, conv):
+        lz, cin, cout, _ = pg._kernel_ctx(crefs)
+        modx, nprx = lz[:2]
+
+        def M(a, b):
+            return lazy_mul_tile(modx, nprx, a, b)
+
+        if conv:
+            p = tuple(pg.to_ext(lz, cin, c) for c in (px, py, pz))
+        else:
+            p = tuple(jnp.pad(c, ((0, LL - L), (0, 0)))
+                      for c in (px, py, pz))
+        out = loop(lambda q: seven(M, *q), p)
+        if conv:
+            return tuple(pg.from_ext(lz, cout, c) for c in out)
+        return tuple(c[:L] for c in out)
+
+    for kind in ("ctx", "conv"):
+        fn = jax.jit(lambda *v, conv=kind == "conv": bisect_ctx(
+            v[:5], *v[5:], conv))
+        put(f"exp_point:bisect:{kind}",
+            fn(*csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+
+    # X8: exp_width's points (seed 3); serial8 through its pl.pallas_call
+    # (exp_width.py:61-85), projdbl under jit
+    pts = pts_of(3, 0)
+
+    def eight_squares(mod, npr, x):
+        for _ in range(8):
+            x = mont_mul_tile(mod, npr, x, x)
+        return x
+
+    put("exp_point:width:serial8", chain_pallas(eight_squares)(
+        mod_t, npr_t, jnp.asarray(pts[0])), pts[0], D)
+    put("exp_point:width:projdbl",
+        lazy_dbl(*csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+
+    # X9: exp_pointops' points (seed 9); mul_chain through its
+    # pl.pallas_call (exp_pointops.py:152-166), the rest under jit
+    pts = pts_of(9, 0)
+    put("exp_point:pointops:mul", chain_pallas(
+        lambda mod, npr, x: mont_mul_tile(mod, npr, x, x))(
+        mod_t, npr_t, jnp.asarray(pts[0])), pts[0], D)
+    sqr = jax.jit(lambda x: loop(lambda v: mont_sqr_tile(mod_c, npr_c, v), x))
+    put("exp_point:pointops:sqr", sqr(jnp.asarray(pts[0])), pts[0], D)
+    for name, body, table in (("double", jac_double, False),
+                              ("add", jac_add, False),
+                              ("wstep", jac_wstep, True)):
+        fn = jax.jit(lambda *v, body=body, table=table: jac_chain(
+            body, *v, table))
+        put(f"exp_point:pointops:{name}",
+            fn(*(jnp.asarray(c) for c in pts)), *pts, D)
+
+    # X10: exp_lazyops' points (seed 9); mulref chain through its
+    # pl.pallas_call (exp_lazyops.py:180-203), the rest under jit but the
+    # window step, op by op: its jit compiled for over an hour on the CPU,
+    # op by op it takes about 3 minutes (the same integers)
+    put("exp_point:lazyops:mulref_chain", lazy_pallas(mulref("chain"))(
+        *csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+    for name, fn in (("proj_double", lazy_dbl),
+                     ("proj_add", lazy_jit(lazy_add)),
+                     ("mulref_indep", lazy_jit(mulref("indep")))):
+        put(f"exp_point:lazyops:{name}",
+            fn(*csts, *(jnp.asarray(c) for c in pts)), *pts, D)
+    with jax.disable_jit():
+        put("exp_point:lazyops:wstep", tuple(np.asarray(c) for c in lazy_chain(
+            csts, lazy_wstep, *(jnp.asarray(c) for c in pts), True)), *pts, D)
+
+
 GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "g1_add": record_g1_add, "msm": record_msm, "das": record_das,
           "field": record_field, "poly": record_poly,
@@ -671,7 +924,7 @@ GROUPS = {"fft": record_fft, "g1": record_g1, "fk20": record_fk20,
           "eth": record_eth, "fft_g1_generic": record_fft_g1_generic,
           "persist": record_persist, "parallel": record_parallel,
           "parallel_g1": record_parallel_g1, "exp_field": record_exp_field,
-          "exp_chain": record_exp_chain}
+          "exp_chain": record_exp_chain, "exp_point": record_exp_point}
 
 
 def main(names) -> None:

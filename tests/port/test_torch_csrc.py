@@ -374,12 +374,14 @@ def test_exp_field_tensor_core_passes():
 
 @pytest.mark.parametrize("fn,argc,first", [
     ("kzg_exp_tuple_chain", 7, "body"),
-    ("kzg_exp_ext_chain", 11, "op")])
+    ("kzg_exp_ext_chain", 11, "op"),
+    ("kzg_exp_ext_body", 11, "body")])
 def test_exp_chain_entry_points(fn, argc, first):
     """The product bodies' entry points are bound with their C argument
-    counts, and their case numbers follow the wrapper's (BODIES, PRODUCTS,
-    TUPLE_CASES; EXT_OPS, EXT_CASES, EXT_CHECK_CASES): the C switch
-    holds exactly the wrapper's cases."""
+    counts, and their case numbers follow the wrapper's (BODIES,
+    PRODUCT_CODES, TUPLE_CASES and TUPLE_CASES_X789; EXT_OPS, EXT_CASES,
+    EXT_CHECK_CASES; EXT_BODIES): the C switch holds exactly the
+    wrapper's cases."""
     from kzg_tpu_torch.experiments import kernels as ek
 
     text = source("exp_field_kernels.cu")
@@ -389,16 +391,29 @@ def test_exp_chain_entry_points(fn, argc, first):
     assert params[0].split()[-1] == first
     body = text[text.index(f'extern "C" int {fn}('):]
     body = body[:body.index("\n}\n")]
-    assert "enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16 };" in text
-    assert "enum Body { kTuple3 = 0, kSingle, kSerial };" in text
-    assert "enum ExtOp { kLazyAdd = 0, kLazySub, kRawAdd };" in text
+    assert ("enum Product { kMont12 = 0, kLazy12, kLazy13, kLazy16, "
+            "kSqr12 };") in text
+    assert ("enum Body { kTuple3 = 0, kSingle, kSerial, kSerial8, kSerial1, "
+            "kTransp };") in text
+    assert ("enum ExtBody { kSevenConv = 0, kSevenCtx, kIndep8, kDblShape "
+            "};") in text
+    assert "enum ExtOp { kLazyAdd = 0, kLazySub, kRawAdd };" in \
+        source("lazy.cuh")
     assert ek.PRODUCTS == ("mont12", "lazy12", "lazy13", "lazy16")
-    assert ek.BODIES == ("tuple3", "single", "serial")
+    assert ek.PRODUCT_CODES == ek.PRODUCTS + ("sqr12",)
+    assert ek.BODIES == ("tuple3", "single", "serial", "serial8", "serial1",
+                         "transp")
     assert ek.EXT_OPS == {"adds": 0, "subs": 1, "fold": 0, "raw": 2}
+    assert ek.EXT_BODIES == ("conv", "ctx", "indep8", "dblshape")
     if fn == "kzg_exp_tuple_chain":
         cases = re.findall(r"launch_tuple<k(\w+), k(\w+)>", body)
         assert sorted((b.lower(), p.lower()) for b, p in cases) == \
-            sorted(ek.TUPLE_CASES)
+            sorted(ek.TUPLE_CASES + ek.TUPLE_CASES_X789)
+    elif fn == "kzg_exp_ext_body":
+        names = {"SevenConv": "conv", "SevenCtx": "ctx", "Indep8": "indep8",
+                 "DblShape": "dblshape"}
+        cases = re.findall(r"launch_ext_body<k(\w+)>", body)
+        assert [names[c] for c in cases] == list(ek.EXT_BODIES)
     else:
         names = {"LazyAdd": 0, "LazySub": 1, "RawAdd": 2}
         cases = re.findall(r"launch_ext<k(\w+), (\d+)>", body)
@@ -408,22 +423,65 @@ def test_exp_chain_entry_points(fn, argc, first):
 
 
 def test_exp_chain_constants():
-    """The 13-word lazy domain's constants in exp_field_kernels.cu (C_IN,
-    C_OUT, K m) equal the wrapper's, and the lazy products' padded moduli
-    take Fp's words and n0."""
+    """The 13-word lazy domain's constants in lazy.cuh (C_IN, C_OUT, K m,
+    one_ext), which exp_field_kernels.cu and exp_point_kernels.cu include,
+    equal the wrapper's, and the lazy products' padded moduli take Fp's
+    words and n0."""
     from kzg_tpu_torch.experiments import kernels as ek
+    from kzg_tpu_torch.experiments import point_kernels as ptk
 
-    text = source("exp_field_kernels.cu")
-    ext = text[text.index("struct Ext {"):]
+    lazy = source("lazy.cuh")
+    ext = lazy[lazy.index("struct Ext {"):]
     for anchor, want in (("c_in(int i)", ek.EXT_C_IN),
                          ("c_out(int i)", ek.EXT_C_OUT),
-                         ("km(int i)", ek.EXT_KM)):
+                         ("km(int i)", ek.EXT_KM),
+                         ("one(int i)", ptk.EXT_ONE)):
         assert words_after(ext, anchor, ek.EXT_WORDS) == want
     assert ek.EXT_C_IN == pow(2, 2 * 416 - 384, fp.SPEC.modulus)
     assert ek.EXT_C_OUT == pow(2, 384, fp.SPEC.modulus)
     assert ek.EXT_KM == 64 * fp.SPEC.modulus < 1 << 416
-    for n in (14, 16):
+    assert ptk.EXT_ONE == pow(2, 416, fp.SPEC.modulus)
+    for name in ("exp_field_kernels.cu", "exp_point_kernels.cu"):
+        assert '#include "lazy.cuh"' in source(name)
+        assert "struct Ext {" not in source(name)
+    for n, text in ((14, lazy), (16, source("exp_field_kernels.cu"))):
         block = text[text.index(f"struct Field<{n}> {{"):]
         block = block[:block.index("};")]
         assert "n0 = Field<12>::n0;" in block
         assert "return i < 12 ? Field<12>::m(i) : 0u;" in block
+
+
+def test_exp_point_entry_point():
+    """exp_point_chain's entry point is bound with its C argument count
+    in a library of its own, its domain and op numbers follow the
+    wrapper's (DOMAINS, OPS), and its switch holds exactly POINT_CASES."""
+    from kzg_tpu_torch.experiments import point_kernels as ptk
+
+    text = source("exp_point_kernels.cu")
+    fn = "kzg_exp_point_chain"
+    assert "exp_point_kernels" in build.SOURCES
+    assert len(build.SIGNATURES["exp_point_kernels"][fn]) == 12
+    params = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)",
+                       text).group(1).split(",")
+    assert [p.split()[-1] for p in params[:3]] == ["domain", "op",
+                                                   "threads"]
+    assert "enum Domain { kJac = 0, kLazy, kLadder };" in text
+    assert "enum Op { kDouble = 0, kAdd, kWstep };" in text
+    assert ptk.DOMAINS == ("jac", "lazy", "ladder")
+    assert ptk.OPS == ("double", "add", "wstep")
+    body = text[text.index(f'extern "C" int {fn}('):]
+    cases = re.findall(r"return launch<k(\w+), k(\w+), (\d+)>", body)
+    assert sorted((d.lower(), o.lower(), int(t)) for d, o, t in cases) == \
+        sorted(ptk.POINT_CASES)
+
+
+def test_jacobian_formulas_shared():
+    """g1_point_kernels.cu and exp_point_kernels.cu take the Jacobian
+    formulas from one header, g1_jac.cuh; neither keeps a copy."""
+    jac = source("g1_jac.cuh")
+    for name in ("struct Jac {", "void jac_double(", "void jac_add("):
+        assert name in jac
+        for user in ("g1_point_kernels.cu", "exp_point_kernels.cu"):
+            assert name not in source(user)
+    for user in ("g1_point_kernels.cu", "exp_point_kernels.cu"):
+        assert '#include "g1_jac.cuh"' in source(user)

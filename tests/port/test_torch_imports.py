@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of kzg_tpu_torch (the
 verification modules of curve/, eth/, the persistence, the utilities and
-the sharded paths of parallel/ and the field-chain experiments of
-experiments/ too), the two examples of the port,
+the sharded paths of parallel/ and the field-chain, product-body and
+point-op experiments of experiments/ too), the two examples of the port,
 chip_smoke.py and the rank tools it and the sharded paths' checks start
 loads neither JAX nor the JAX package, and builds no kernel and no host
 library."""
@@ -73,8 +73,14 @@ def test_import_loads_no_jax_and_builds_nothing():
         "kzg_tpu_torch.experiments.exp_ab_mul",
         "kzg_tpu_torch.experiments.exp_carry",
         "kzg_tpu_torch.experiments.exp_truth",
-        "kzg_tpu_torch.experiments.exp_addcost"}
-    assert len(seen["modules"]) >= 57
+        "kzg_tpu_torch.experiments.exp_addcost",
+        "kzg_tpu_torch.experiments.point_kernels",
+        "kzg_tpu_torch.experiments.exp_calib",
+        "kzg_tpu_torch.experiments.exp_bisect",
+        "kzg_tpu_torch.experiments.exp_width",
+        "kzg_tpu_torch.experiments.exp_pointops",
+        "kzg_tpu_torch.experiments.exp_lazyops"}
+    assert len(seen["modules"]) >= 63
     assert seen["loaded"] == []
     assert seen["built"] == 0
     assert seen["host_built"] == 0
